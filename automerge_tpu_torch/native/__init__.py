@@ -1,0 +1,554 @@
+"""`NativeDocPool`: the C++ host runtime driving the port's device kernels.
+
+The C++ runtime (`native/core.cpp`, loaded through `_lib`) decodes a
+msgpack batch {doc_id: [change, ...]}, schedules it causally and encodes
+register and list-arena columns (begin); the device resolves every
+register, linearizes every list and computes every list index in one
+pass (`ops.registers.resolve_rank_dominate`); the C++ mid and emit
+phases then write the patch bytes.
+
+A pool runs on one device.  `NativeDocPool()` means CUDA and raises when
+there is none; the kernels there are the hand-written CUDA ones.
+`NativeDocPool(device='cpu')` runs the same path with the plain PyTorch
+version of each kernel.  Nothing switches device or implementation
+behind the caller's back.
+
+Per batch (`apply_batch_bytes`):
+  phase a: C++ begin, private copies of the C++ columns uploaded to the
+    device, one fused dispatch, the packed result copied into pinned
+    host memory behind a CUDA event;
+  phase b: wait for that event, C++ mid (fed the packed register words,
+    the conflict rows that need them and the dominance indexes), C++
+    emit -> patch bytes.
+Batches whose layout does not fit the fused dispatch (several dominance
+size classes, member-mode overflow, T >= 2^24) resolve registers and
+ranks first and run dominance after the mid phase, one dispatch per
+size class.  Member-mode rows the host flagged (more concurrent writers
+than the window, or one change assigning a key twice) are resolved by
+the C++ oracle replay inside mid and counted as `fallback.oracle`.
+"""
+
+import ctypes
+import threading
+
+import msgpack
+import numpy as np
+import torch
+
+from .. import storage, trace
+from ..errors import AutomergeError, RangeError
+from ..ops import list_rank
+from ..ops import registers as register_ops
+from ..ops.dominance_kernel import dominance_grouped_auto
+from ..utils import doc_key, map_header
+from ._lib import lib, loaded, take_buf
+from .clock_cache import PoolClockCache
+
+# ---------------------------------------------------------------------------
+# batch handles: every successful begin is paired with exactly one free
+# ---------------------------------------------------------------------------
+
+_live_lock = threading.Lock()
+_live_batches = 0
+
+
+def _track_begin():
+    global _live_batches
+    with _live_lock:
+        _live_batches += 1
+
+
+def _free_batch(bh):
+    global _live_batches
+    lib().amtpu_batch_free(bh)
+    with _live_lock:
+        _live_batches -= 1
+
+
+def live_batch_handles():
+    """Currently allocated C++ batch handles (leak-audit hook)."""
+    with _live_lock:
+        return _live_batches
+
+
+def _rollback_batch(bh):
+    """Rolls a failed batch back to the pre-begin pool state; False when
+    emit had already run (the pool state is then suspect)."""
+    if lib().amtpu_batch_rollback(bh) != 0:
+        trace.metric('resilience.rollback_unavailable')
+        return False
+    trace.metric('resilience.rollback')
+    return True
+
+
+def _raise_last():
+    msg = lib().amtpu_last_error().decode()
+    kind = lib().amtpu_last_error_kind()
+    if kind == 2:
+        raise TypeError(msg)
+    raise (RangeError if kind == 1 else AutomergeError)(msg)
+
+
+def _view(ptr, shape):
+    """numpy view of a C++ column (zero-size shapes never touch ptr)."""
+    if int(np.prod(shape)) == 0:
+        return np.zeros(shape, np.dtype(ptr._type_))
+    return np.ctypeslib.as_array(ptr, shape=shape)
+
+
+def _ip(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _up(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _to_host(t):
+    return np.ascontiguousarray(t.cpu().numpy())
+
+
+class NativeDocPool:
+    """C++ host runtime + the port's device kernels on one device."""
+
+    #: member-window width of the C++ layout (ops.registers.WINDOW)
+    WINDOW = register_ops.WINDOW
+    #: entries amtpu_batch_dims writes -- must match core.cpp exactly
+    N_DIMS = 14
+
+    def __init__(self, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    'NativeDocPool() runs on CUDA and no CUDA device is '
+                    'available; pass device="cpu" for the plain PyTorch '
+                    'versions of the kernels')
+            device = 'cuda'
+        self.device = torch.device(device)
+        if self.device.type not in ('cuda', 'cpu'):
+            raise ValueError('NativeDocPool runs on cuda or cpu, not %s'
+                             % self.device)
+        L = lib()
+        self._pool = L.amtpu_pool_new()
+        # the port is the kernel path on both devices: C++ never takes
+        # the full host path
+        L.amtpu_pool_set_hostfull(self._pool, 0)
+        self._resclk = PoolClockCache(self.device)
+
+    def __del__(self):
+        L = loaded()
+        if getattr(self, '_pool', None) and L is not None:
+            L.amtpu_pool_free(self._pool)
+            self._pool = None
+
+    def doc_count(self):
+        return lib().amtpu_doc_count(self._pool)
+
+    # -- wire path ------------------------------------------------------
+
+    def apply_batch_bytes(self, payload):
+        """msgpack {doc_id: [change...]} -> msgpack {doc_id: patch}."""
+        L = lib()
+        with trace.span('host.begin'):
+            bh = L.amtpu_begin(self._pool, payload, len(payload))
+        if not bh:
+            _raise_last()
+        _track_begin()
+        return self._run_batch(bh)
+
+    def apply_local_change(self, doc_id, request):
+        """Applies one local change request (requestType change / undo /
+        redo) and returns its patch."""
+        key = doc_key(doc_id)
+        payload = msgpack.packb(request, use_bin_type=True)
+        with trace.span('host.begin'):
+            bh = lib().amtpu_begin_local(self._pool, key.encode(), payload,
+                                         len(payload))
+        if not bh:
+            _raise_last()
+        _track_begin()
+        out = self._run_batch(bh)
+        return msgpack.unpackb(out, raw=False, strict_map_key=False)[key]
+
+    def _run_batch(self, bh):
+        """Phase a + b over a begun batch; rolls back on failure and
+        always frees the handle."""
+        try:
+            ctx = self._phase_a(bh)
+            return self._phase_b(ctx)
+        except Exception:
+            _rollback_batch(bh)
+            raise
+        finally:
+            _free_batch(bh)
+
+    def _upload(self, view, dtype=None):
+        """Private host copy of a C++ column, then the device upload: the
+        C++ buffers never back a tensor (they are freed with the batch)."""
+        arr = np.array(view, dtype=dtype)
+        return torch.from_numpy(arr).to(self.device)
+
+    def _phase_a(self, bh):
+        """Reads the batch dims and dispatches the device work."""
+        L = lib()
+        ctx = {'bh': bh}
+        dims = (ctypes.c_int64 * self.N_DIMS)()
+        L.amtpu_batch_dims(bh, dims)
+        (T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp, use_members,
+         any_ovf, max_group, pre_ovf, host_full) = [int(x) for x in dims]
+        if host_full:
+            raise AutomergeError('batch pinned to the host path; the '
+                                 'port drives the kernel path only')
+        fdims = (ctypes.c_int64 * 6)()
+        L.amtpu_fused_dims(bh, fdims)
+        fused_ok, W, dLp, dTp, _resident_ok, res_clock = \
+            [int(x) for x in fdims]
+        trace.metric('ops.register_rows', T)
+        # C++ builds member windows once a register group is wider than
+        # WINDOW.  A sliding window that covers the widest group is exact
+        # and cannot saturate, so up to SLIDING_MAX the register kernel
+        # resolves the batch in sliding mode and the member layout (whose
+        # host overflow flags would send rows to the oracle) goes unused.
+        # The C++ batch still holds use_members, any_ovf, n_pre_ovf,
+        # mem_idx/host_ovf and the escalation layout it built at begin.
+        # They only shaped begin's own choices (fused_ok, the resident
+        # arena): mid, the oracle replay and emit read the overflow flags
+        # this driver passes (k_overflow), and it passes none here, so the
+        # stale member state is never read.  The member windows are still
+        # built in begin; skipping them belongs in core.cpp (ROADMAP).
+        if use_members and max_group <= register_ops.SLIDING_MAX:
+            trace.metric('registers.sliding_over_members')
+            use_members = 0
+        mem = hovf = None
+        if use_members and Tp > 0:
+            mem = _view(L.amtpu_col_memidx(bh), (Tp, self.WINDOW))
+            hovf = np.array(_view(L.amtpu_col_hostovf(bh), (Tp,)))
+        # the smallest power of two that holds the widest group: a sliding
+        # window of weff predecessors never fills (no overflow flag)
+        if use_members:
+            weff = self.WINDOW
+        else:
+            weff = 2
+            while weff < max_group:
+                weff *= 2
+        ctx.update(dims=(T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp),
+                   mem=mem, hovf=hovf, weff=weff)
+        if res_clock and Tp > 0:
+            ctx['ctab_dev'] = self._resclk.table(L, self._pool)
+        elif not res_clock:
+            self._resclk.drop_if_disabled(L, self._pool)
+        with trace.span('device.dispatch'):
+            if fused_ok:
+                self._dispatch_fused(L, ctx, Tp, Ap, CTp, Lp, max_obj,
+                                     n_blocks, W, dLp, dTp)
+            else:
+                trace.metric('fallback.layout_batches')
+                reg_out, rank = self._run_resolver(
+                    L, bh, Tp, Ap, CTp, Lp, max_obj, ctx)
+                ctx.update(mode='old', reg_out=reg_out, rank=rank)
+        return ctx
+
+    def _register_views(self, L, bh, Tp, Ap, CTp, ctab_dev=None):
+        """The register columns on the device.  `ctab_dev` (the pool-
+        resident clock table) replaces the batch-local table when the
+        batch was encoded against pool-global clock rows (CTp == 0)."""
+        if ctab_dev is None:
+            ctab_dev = self._upload(_view(L.amtpu_col_clocktab(bh),
+                                          (CTp, Ap)))
+        cols = {k: self._upload(_view(getattr(L, 'amtpu_col_' + c)(bh),
+                                      (Tp,)))
+                for k, c in (('g', 'g'), ('t', 't'), ('a', 'a'), ('s', 's'),
+                             ('cidx', 'clockidx'), ('si', 'sort'))}
+        cols['d'] = self._upload(_view(L.amtpu_col_d(bh), (Tp,)), bool)
+        cols['ctab'] = ctab_dev
+        return cols
+
+    def _arena_views(self, L, bh, Lp):
+        """The list-arena columns on the device."""
+        cols = {k: self._upload(_view(getattr(L, 'amtpu_col_' + k)(bh),
+                                      (Lp,)))
+                for k in ('obj', 'par', 'ctr', 'act')}
+        cols['val'] = self._upload(_view(L.amtpu_col_val(bh), (Lp,)), bool)
+        cols['lsi'] = self._upload(_view(L.amtpu_col_linsort(bh), (Lp,)))
+        return cols
+
+    def _fetch_async(self, ctx, t):
+        """Starts the device->host copy of `t` into pinned memory and
+        records the event phase b waits on."""
+        if self.device.type == 'cuda':
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            ctx.update(combo_host=host, combo_event=ev)
+        else:
+            ctx.update(combo_host=t, combo_event=None)
+
+    def _dispatch_fused(self, L, ctx, Tp, Ap, CTp, Lp, max_obj, n_blocks,
+                        W, dLp, dTp):
+        bh = ctx['bh']
+        ctx.update(mode='fused', combo=None, reg_out=None, rank=None)
+        if Tp == 0:
+            # no register ops: nothing to resolve and no list timelines
+            return
+        r = self._register_views(L, bh, Tp, Ap, CTp, ctx.get('ctab_dev'))
+        mem = ctx['mem']
+        mem_dev = None if mem is None else self._upload(mem)
+        if n_blocks == 0:
+            # map-only batch: register resolution alone
+            reg_out = register_ops._resolve(
+                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                r['d'], r['si'], mem_dev, ctx['weff'],
+                want_visible_before=False)
+            combo = reg_out['packed']
+        else:
+            e = self._arena_views(L, bh, Lp)
+            n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
+            shape_l, shape_t = (W, dLp), (W, dTp)
+            reg_out, rank, combo = register_ops.resolve_rank_dominate(
+                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                r['d'], r['si'], e['obj'], e['par'], e['ctr'], e['act'],
+                e['val'], e['lsi'], n_iters,
+                self._upload(_view(L.amtpu_dom_v0(bh, 0), shape_l)),
+                self._upload(_view(L.amtpu_fdom_ersrc(bh), shape_l)),
+                self._upload(_view(L.amtpu_dom_oe(bh, 0), shape_t)),
+                self._upload(_view(L.amtpu_fdom_oranksrc(bh), shape_t)),
+                self._upload(_view(L.amtpu_fdom_domsrc(bh), shape_t)),
+                self._upload(_view(L.amtpu_dom_ov(bh, 0), shape_t), bool),
+                window=ctx['weff'], mem_idx=mem_dev)
+            ctx['rank'] = rank
+        self._fetch_async(ctx, combo)
+        ctx.update(combo=combo, reg_out=reg_out)
+
+    def _phase_b(self, ctx):
+        """Collect device results, run host mid + emit, return patch bytes."""
+        L = lib()
+        bh = ctx['bh']
+        T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp = ctx['dims']
+        if ctx['mode'] == 'fused':
+            with trace.span('device.collect'):
+                if ctx['combo'] is None:
+                    packed = dom_idx = np.zeros(0, np.int32)
+                else:
+                    if ctx['combo_event'] is not None:
+                        ctx['combo_event'].synchronize()
+                    combo = ctx['combo_host'].numpy()
+                    packed = np.ascontiguousarray(combo[:Tp])
+                    dom_idx = np.ascontiguousarray(combo[Tp:])
+            # no row can be flagged: a sliding window holds the widest
+            # group, member mode flags nothing on the device, and host-
+            # flagged member overflow sends the batch to the layout fallback
+            if ((packed >> register_ops.PACKED_OVF_SHIFT) & 1).any():
+                raise AssertionError('a register row was flagged overflow '
+                                     'on the fused path')
+            conf_rows = np.nonzero(
+                ((packed >> register_ops.PACKED_ALIVE_SHIFT)
+                 & register_ops.PACKED_ALIVE_MASK) > 1)[0].astype(np.int32)
+            conf_vals = self._gather_conflict_rows(ctx['reg_out'], conf_rows)
+            conf_offs = np.arange(conf_rows.size + 1,
+                                  dtype=np.int32) * ctx['weff']
+            with trace.span('host.mid'):
+                if L.amtpu_mid_packed(
+                        bh, _ip(packed), ctx['weff'], _ip(conf_rows),
+                        _ip(conf_offs), _ip(conf_vals), len(conf_rows),
+                        None, None, _ip(dom_idx), 0) != 0:
+                    _raise_last()
+        else:
+            with trace.span('device.collect'):
+                if Tp > 0:
+                    winner, conflicts, alive, overflow = \
+                        self._unpack_register_out(ctx['reg_out'], Tp)
+                    if ctx['hovf'] is not None:
+                        # member mode: overflow is decided by the host
+                        overflow = ctx['hovf'].astype(np.uint8)
+                        n_ovf = int(overflow.sum())
+                        if n_ovf:
+                            trace.metric('fallback.member_overflow_rows',
+                                         n_ovf)
+                            trace.metric('fallback.overflow_batches')
+                    self._count_oracle(overflow)
+                else:
+                    winner = conflicts = alive = np.zeros(0, np.int32)
+                    overflow = np.zeros(0, np.uint8)
+                rank = ctx['rank']
+            self._mid(L, bh, winner, conflicts, alive, overflow, rank)
+            self._run_dominance(L, bh)
+        with trace.span('host.finish'):
+            if L.amtpu_finish(bh) != 0:
+                _raise_last()
+        out_len = ctypes.c_int64()
+        ptr = L.amtpu_result(bh, ctypes.byref(out_len))
+        return ctypes.string_at(ptr, out_len.value) \
+            if out_len.value else b'\x80'
+
+    @staticmethod
+    def _count_oracle(overflow):
+        """Rows still flagged go to the C++ oracle replay in amtpu_mid
+        (the escalation tiers of the JAX package are not ported)."""
+        n_oracle = int(np.asarray(overflow, bool).sum())
+        if n_oracle:
+            trace.metric('fallback.oracle', n_oracle)
+
+    def _mid(self, L, bh, winner, conflicts, alive, overflow, rank):
+        winner = np.ascontiguousarray(winner, np.int32)
+        conflicts = np.ascontiguousarray(conflicts, np.int32)
+        alive = np.ascontiguousarray(alive, np.int32)
+        overflow = np.ascontiguousarray(overflow, np.uint8)
+        rank = np.ascontiguousarray(rank, np.int32)
+        width = int(conflicts.shape[1]) if conflicts.ndim == 2 else 0
+        with trace.span('host.mid'):
+            if L.amtpu_mid(bh, _ip(winner), _ip(conflicts), width,
+                           _ip(alive), _up(overflow), _ip(rank), 0) != 0:
+                _raise_last()
+
+    def _gather_conflict_rows(self, reg_out, rows):
+        """Conflict rows only where a register kept >1 member, gathered on
+        the device.  Returns [n, W] int32."""
+        if not rows.size:
+            return np.zeros(0, np.int32)
+        got = register_ops.gather_rows(
+            reg_out['conflicts'], torch.from_numpy(rows).to(self.device))
+        return _to_host(got).astype(np.int32)
+
+    def _gather_conflicts(self, reg_out, alive, Tp):
+        """Dense [Tp, W] conflicts, -1 where a register kept <= 1 member."""
+        width = int(reg_out['conflicts'].shape[1])
+        conflicts = np.full((Tp, width), -1, np.int32)
+        rows = np.nonzero(alive > 1)[0].astype(np.int32)
+        if rows.size:
+            conflicts[rows] = self._gather_conflict_rows(reg_out, rows)
+        return conflicts
+
+    def _unpack_register_out(self, reg_out, Tp):
+        """Host winner/conflicts/alive/overflow: one packed transfer plus
+        the conflict rows that need it; the unpacked outputs once the
+        packed winner field (24 bits) is too narrow."""
+        if Tp >= 1 << 24:
+            return (_to_host(reg_out['winner']),
+                    _to_host(reg_out['conflicts']),
+                    _to_host(reg_out['alive_after']),
+                    _to_host(reg_out['overflow']).astype(np.uint8))
+        winner, alive, overflow = self._unpack_packed(
+            _to_host(reg_out['packed']))
+        return winner, self._gather_conflicts(reg_out, alive, Tp), alive, \
+            overflow
+
+    @staticmethod
+    def _unpack_packed(packed):
+        """Splits the packed [T] int32 register word (decode twin of
+        ops.registers.pack_register_word)."""
+        winner = np.ascontiguousarray(
+            packed & register_ops.PACKED_WINNER_MASK, np.int32)
+        winner[winner == register_ops.PACKED_WINNER_NONE] = -1
+        alive = np.ascontiguousarray(
+            (packed >> register_ops.PACKED_ALIVE_SHIFT)
+            & register_ops.PACKED_ALIVE_MASK, np.int32)
+        overflow = np.ascontiguousarray(
+            (packed >> register_ops.PACKED_OVF_SHIFT) & 1, np.uint8)
+        return winner, alive, overflow
+
+    def _run_resolver(self, L, bh, Tp, Ap, CTp, Lp, max_obj, ctx):
+        """Registers + ranks for the layout-fallback path.  Returns
+        (reg_out device dict | None, rank host int32 [Lp])."""
+        mem = ctx['mem']
+        reg_out = None
+        rank = np.zeros((0,), np.int32)
+        if Tp > 0:
+            r = self._register_views(L, bh, Tp, Ap, CTp, ctx.get('ctab_dev'))
+            mem_dev = None if mem is None else self._upload(mem)
+        if Lp > 0:
+            e = self._arena_views(L, bh, Lp)
+            n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
+        if Tp > 0 and Lp > 0:
+            reg_out, rank_dev = register_ops.resolve_and_rank(
+                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                r['d'], r['si'], e['obj'], e['par'], e['ctr'], e['act'],
+                e['val'], e['lsi'], n_iters, window=ctx['weff'],
+                mem_idx=mem_dev)
+            rank = _to_host(rank_dev)
+        elif Tp > 0:
+            reg_out = register_ops._resolve(
+                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                r['d'], r['si'], mem_dev, ctx['weff'],
+                want_visible_before=False)
+        elif Lp > 0:
+            rank = _to_host(list_rank.linearize(
+                e['obj'], e['par'], e['ctr'], e['act'], e['val'], n_iters,
+                sort_idx=e['lsi']))
+        return reg_out, rank
+
+    def _run_dominance(self, L, bh):
+        """Layout-fallback dominance: one dispatch per size class over the
+        er/orank/od mirrors C++ filled in mid."""
+        dims = (ctypes.c_int64 * self.N_DIMS)()
+        L.amtpu_batch_dims(bh, dims)
+        bdims = (ctypes.c_int64 * 3)()
+        with trace.span('device.dominance'):
+            for blk in range(int(dims[6])):
+                L.amtpu_dom_dims(bh, blk, bdims)
+                W, Lp, Tp = [int(x) for x in bdims]
+                sl, st = (W, Lp), (W, Tp)
+                idx = _to_host(dominance_grouped_auto(
+                    self._upload(_view(L.amtpu_dom_v0(bh, blk), sl)),
+                    self._upload(_view(L.amtpu_dom_er(bh, blk), sl)),
+                    self._upload(_view(L.amtpu_dom_oe(bh, blk), st)),
+                    self._upload(_view(L.amtpu_dom_orank(bh, blk), st)),
+                    self._upload(_view(L.amtpu_dom_od(bh, blk), st)),
+                    self._upload(_view(L.amtpu_dom_ov(bh, blk), st), bool),
+                    chunk=64)).astype(np.int32)
+                L.amtpu_dom_set_indexes(bh, blk, _ip(idx))
+
+    # -- dict-level API -------------------------------------------------
+
+    def apply_batch(self, changes_by_doc):
+        """{doc_id: [change dict, ...]} -> {doc_id: patch dict}."""
+        keyed = {doc_key(d): chs for d, chs in changes_by_doc.items()}
+        out = msgpack.unpackb(
+            self.apply_batch_bytes(msgpack.packb(keyed, use_bin_type=True)),
+            raw=False, strict_map_key=False)
+        return {d: out[doc_key(d)] for d in changes_by_doc}
+
+    def apply_changes(self, doc_id, changes):
+        return self.apply_batch({doc_id: changes})[doc_id]
+
+    def _query(self, fn, doc_id):
+        out_len = ctypes.c_int64()
+        ptr = fn(self._pool, doc_key(doc_id).encode(), ctypes.byref(out_len))
+        if not ptr:
+            _raise_last()
+        return take_buf(ptr, out_len.value)
+
+    def get_patch(self, doc_id):
+        return msgpack.unpackb(self._query(lib().amtpu_get_patch, doc_id),
+                               raw=False)
+
+    def get_clock(self, doc_id):
+        """{'clock': ..., 'deps': ...} without materializing the doc."""
+        return msgpack.unpackb(self._query(lib().amtpu_get_clock, doc_id),
+                               raw=False)
+
+    # -- checkpoints (v1 container) -------------------------------------
+
+    def save(self, doc_id):
+        """The doc's change history as a v1 checkpoint container."""
+        raw = self._query(lib().amtpu_save, doc_id)
+        return storage.pack_checkpoint_v1(storage.split_changes_array(
+            memoryview(raw)[len(storage.CKPT_V1_PREFIX):]))
+
+    def load_batch(self, blobs):
+        """Restores many v1 checkpoints ({doc_id: bytes}) as ONE batched
+        replay through the device kernels."""
+        parts = [map_header(len(blobs))]
+        for doc_id, data in blobs.items():
+            if not bytes(data[:len(storage.CKPT_V1_PREFIX)]) == \
+                    storage.CKPT_V1_PREFIX:
+                raise RangeError('not a v1 amtpu-doc checkpoint: %r'
+                                 % (doc_id,))
+            parts.append(msgpack.packb(doc_key(doc_id), use_bin_type=True))
+            parts.append(bytes(data[len(storage.CKPT_V1_PREFIX):]))
+        self.apply_batch_bytes(b''.join(parts))
+
+    def load(self, doc_id, data):
+        """Restores one checkpoint; returns the doc's whole-state patch."""
+        self.load_batch({doc_id: data})
+        return self.get_patch(doc_id)

@@ -1,0 +1,114 @@
+"""Builds and loads the C++ host runtime (`native/core.cpp`) for the port.
+
+The port owns its build of the library: at first use the repository's
+`native/core.cpp` + `native/msgpack.h` compile with the flags of
+`native/Makefile` into `build/automerge_tpu_torch/` through `buildcache`
+(named by a hash of the sources and flags, so an edited source rebuilds;
+concurrent processes such as test workers never load a half-written
+file).
+
+Only the symbols this package calls are declared.  The library keeps
+its knobs (AMTPU_RESIDENT*, AMTPU_TRIVIAL_HOST) in C++ statics that
+latch at the first batch of the process that loaded it.
+"""
+
+import ctypes
+import os
+
+from .. import buildcache
+
+_SRC_DIR = os.path.join(buildcache.ROOT, 'native')
+_SOURCES = ('core.cpp', 'msgpack.h')
+_CXXFLAGS = ['-O2', '-std=c++17', '-fPIC', '-shared']
+
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_vp = ctypes.c_void_p
+_cp = ctypes.c_char_p
+_i64 = ctypes.c_int64
+_int = ctypes.c_int
+
+# name -> (restype, argtypes)
+_ABI = {
+    'amtpu_pool_new': (_vp, []),
+    'amtpu_pool_free': (None, [_vp]),
+    'amtpu_pool_set_hostfull': (None, [_vp, _int]),
+    'amtpu_doc_count': (_i64, [_vp]),
+    'amtpu_last_error': (_cp, []),
+    'amtpu_last_error_kind': (_int, []),
+    'amtpu_begin': (_vp, [_vp, _cp, _i64]),
+    'amtpu_begin_local': (_vp, [_vp, _cp, _cp, _i64]),
+    'amtpu_batch_free': (None, [_vp]),
+    'amtpu_batch_rollback': (_int, [_vp]),
+    'amtpu_batch_dims': (None, [_vp, _i64p]),
+    'amtpu_fused_dims': (None, [_vp, _i64p]),
+    'amtpu_mid': (_int, [_vp, _i32p, _i32p, _int, _i32p, _u8p, _i32p,
+                         _int]),
+    'amtpu_mid_packed': (_int, [_vp, _i32p, _int, _i32p, _i32p, _i32p,
+                                _i64, _u8p, _i32p, _i32p, _int]),
+    'amtpu_finish': (_int, [_vp]),
+    'amtpu_result': (_u8p, [_vp, _i64p]),
+    'amtpu_dom_dims': (None, [_vp, _i64, _i64p]),
+    'amtpu_dom_v0': (ctypes.POINTER(ctypes.c_float), [_vp, _i64]),
+    'amtpu_dom_ov': (_u8p, [_vp, _i64]),
+    'amtpu_dom_set_indexes': (None, [_vp, _i64, _i32p]),
+    'amtpu_resclk_info': (None, [_vp, _i64p]),
+    'amtpu_resclk_tab': (_i32p, [_vp]),
+    'amtpu_get_patch': (_u8p, [_vp, _cp, _i64p]),
+    'amtpu_get_clock': (_u8p, [_vp, _cp, _i64p]),
+    'amtpu_save': (_u8p, [_vp, _cp, _i64p]),
+    'amtpu_buf_free': (None, [_u8p]),
+}
+for _name in ('g', 't', 'a', 's', 'clocktab', 'clockidx', 'sort', 'obj',
+              'par', 'ctr', 'act', 'linsort', 'memidx'):
+    _ABI['amtpu_col_' + _name] = (_i32p, [_vp])
+for _name in ('d', 'val', 'hostovf'):
+    _ABI['amtpu_col_' + _name] = (_u8p, [_vp])
+for _name in ('er', 'oe', 'orank', 'od'):
+    _ABI['amtpu_dom_' + _name] = (_i32p, [_vp, _i64])
+for _name in ('ersrc', 'oranksrc', 'domsrc'):
+    _ABI['amtpu_fdom_' + _name] = (_i32p, [_vp])
+
+
+def build():
+    """Path of the built library, compiling it first if absent."""
+    path = buildcache.artifact(
+        buildcache.BUILD_ROOT, 'libamtpu_core',
+        [os.path.join(_SRC_DIR, n) for n in _SOURCES], _CXXFLAGS)
+    return buildcache.finish(buildcache.start(
+        path, lambda out: ['g++'] + _CXXFLAGS + [
+            os.path.join(_SRC_DIR, 'core.cpp'), '-o', out, '-lz'],
+        'native/core.cpp'))
+
+
+def _load():
+    lib = ctypes.CDLL(build())
+    for name, (restype, argtypes) in _ABI.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+_lib = None
+
+
+def lib():
+    global _lib
+    if _lib is None:
+        _lib = _load()
+    return _lib
+
+
+def loaded():
+    """The loaded library, or None (interpreter-shutdown safe)."""
+    return _lib
+
+
+def take_buf(ptr, length):
+    """Copies a C++-allocated buffer into bytes and frees it."""
+    try:
+        return ctypes.string_at(ptr, length)
+    finally:
+        lib().amtpu_buf_free(ptr)

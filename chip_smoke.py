@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on the GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
+port's C++ host runtime and both CUDA kernels from this checkout, then:
+
+  1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
+     8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
+     `apply_batch_bytes` on an `automerge_tpu_torch` pool on the card,
+     and the same payload on a CPU pool (the plain PyTorch versions):
+     the patch bytes must be equal, no register row may take the C++
+     oracle, and both kernels must have launched;
+  2. applies the map-only batch (bench config 4: 1024 Table docs) the
+     same way: the register kernel must have launched;
+  3. loads v1 checkpoints saved by the CPU pool into a card pool as one
+     batched replay: every doc's patch must equal the CPU pool's;
+  4. holds each kernel against its plain PyTorch version on the card,
+     bit-equal (integer outputs, tolerance 0), at the inputs the main
+     path gave it and at random shapes, and times kernel and plain
+     version with CUDA events.
+
+The launch counts of each path are zeroed just before the path runs and
+read just after; launches made for the comparisons do not count.  The
+last three lines are the kernel table (JSON), the card's name and power
+limit, and {"ok": true, "device": {...}}.  Any failed phase exits
+nonzero without the last line.
+"""
+
+import concurrent.futures
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+import traceback
+
+H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+H100_INT_OPS_PER_S = 67e12          # non-tensor 32-bit rate (fp32 entry)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def device_ms(torch, fn, reps=20, rounds=5):
+    """Per-call device time of fn(): `reps` back-to-back calls between two
+    CUDA events, divided by `reps`; the median over `rounds`."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        per.append(s.elapsed_time(e) / reps)
+    per.sort()
+    return per[len(per) // 2]
+
+
+def registers_launcher(torch, _build, args, window):
+    """The register kernel's C entry point alone, on outputs allocated
+    once: what `ms` times (the wrapper adds allocation and checks)."""
+    ins = [a.contiguous() for a in args]
+    T = ins[0].numel()
+    dev = ins[0].device
+    outs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
+        ((T,), torch.int32), ((T, window), torch.int32),
+        ((T,), torch.int32), ((T,), torch.bool), ((T,), torch.bool),
+        ((T,), torch.int32))]
+    lib = _build.kernel('registers')
+    ptrs = [t.data_ptr() for t in ins + outs]
+    extra = (T, window, ins[6].shape[1], _build.stream_of(ins[0]))
+
+    def launch(keep=(ins, outs)):
+        _build.check(lib.amtpu_torch_registers(*ptrs, *extra), 'registers')
+    return launch
+
+
+def dominance_launcher(torch, _build, smem_max_l, args, chunk):
+    """The dominance kernel's C entry point alone, on an output (and
+    scratch row) allocated once."""
+    vis0 = args[0].to(torch.float32).contiguous()
+    ins = [vis0] + [a.to(torch.int32).contiguous() for a in args[1:5]] + \
+        [args[5].to(torch.bool).contiguous()]
+    O, L = vis0.shape
+    T = ins[2].shape[1]
+    index = torch.empty((O, T), dtype=torch.int32, device=vis0.device)
+    use_smem = L <= smem_max_l
+    scratch = None if use_smem else torch.empty(
+        (O, L), dtype=torch.int32, device=vis0.device)
+    lib = _build.kernel('dominance')
+    ptrs = [t.data_ptr() for t in ins + [index]] + \
+        [None if scratch is None else scratch.data_ptr()]
+    extra = (O, L, T, chunk, int(use_smem), _build.stream_of(vis0))
+
+    def launch(keep=(ins, index, scratch)):
+        _build.check(lib.amtpu_torch_dominance(*ptrs, *extra), 'dominance')
+    return launch
+
+
+# -- random kernel inputs (numpy, from a seed) ------------------------------
+
+def registers_case(np, rs, T, A, W):
+    n_groups = max(T // 3, 1)
+    group = rs.randint(0, n_groups, T).astype(np.int32)
+    group[rs.random_sample(T) < 0.05] = -1                 # padding rows
+    time_ = rs.permutation(T).astype(np.int32)
+    state = np.nonzero(rs.random_sample(T) < 0.05)[0]      # state rows
+    time_[state] = -1 - np.arange(state.size, dtype=np.int32)
+    actor = rs.randint(0, A, T).astype(np.int32)
+    seq = rs.randint(1, 12, T).astype(np.int32)
+    C = max(T // 4, 1)
+    table = rs.randint(0, 12, (C, A)).astype(np.int32)
+    cidx = rs.randint(0, C, T).astype(np.int32)
+    is_del = rs.random_sample(T) < 0.1
+    sort_idx = np.lexsort((time_, group)).astype(np.int32)
+    return (group, time_, actor, seq, is_del, sort_idx, table, cidx)
+
+
+def dominance_case(np, rs, O, L, T, all_visible=False):
+    n = rs.randint(1, L + 1, O) if not all_visible else np.full(O, L)
+    t = rs.randint(1, T + 1, O) if not all_visible else np.full(O, T)
+    valid_e = np.arange(L)[None] < n[:, None]
+    keys = np.where(valid_e, rs.random_sample((O, L)), 2.0)
+    er = np.argsort(np.argsort(keys, axis=1), axis=1)
+    er = np.where(valid_e, er, -1).astype(np.int32)
+    vis = valid_e if all_visible else valid_e & (rs.random_sample((O, L))
+                                                 < 0.5)
+    v0 = vis.astype(np.float32)
+    ov = np.arange(T)[None] < t[:, None]
+    oe = np.where(ov, (rs.random_sample((O, T)) * n[:, None]).astype(
+        np.int32), -1).astype(np.int32)
+    orank = np.where(ov, np.take_along_axis(er, np.maximum(oe, 0), axis=1),
+                     -1).astype(np.int32)
+    od = np.where(ov, rs.randint(-1, 2, (O, T)), 0).astype(np.int32)
+    return (v0, er, oe, orank, od, ov)
+
+
+# -- bounds: the least time the card could take for the same work ---------
+
+def registers_bound(args, window):
+    group, clock_table = args[0], args[6]
+    T = group.numel()
+    read = T * (6 * 4 + 1) + clock_table.numel() * 4
+    written = T * (3 * 4 + 4 * window + 2)
+    ops = T * (window + 1) * (window + 1) * 4
+    t_bytes = (read + written) / H100_BYTES_PER_S
+    t_ops = ops / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
+def dominance_bound(args):
+    vis0, elem_rank, op_valid = args[0], args[1], args[5]
+    O, L = vis0.shape
+    T = op_valid.shape[1]
+    moved = O * L * 8 + O * T * (3 * 4 + 1) + O * T * 4
+    # one compare + one add per (valid op, valid element) of its object
+    ops = 2 * int(((elem_rank >= 0).sum(1).long() *
+                   op_valid.sum(1).long()).sum())
+    t_bytes = moved / H100_BYTES_PER_S
+    t_ops = ops / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print('chip_smoke: torch is not installed', file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        import automerge_tpu_torch  # noqa: F401
+    except ImportError:
+        print('chip_smoke: run from a checkout holding automerge_tpu_torch/',
+              file=sys.stderr)
+        return 2
+    try:
+        kernels = run(torch)
+    except Exception:
+        traceback.print_exc()
+        print('chip_smoke: FAILED', file=sys.stderr)
+        return 1
+    log(json.dumps({'kernels': kernels}))
+    log(card_line())
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def run(torch):
+    import msgpack
+    import numpy as np
+
+    from automerge_tpu_torch import trace, workloads
+    from automerge_tpu_torch.native import NativeDocPool, _lib
+    from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
+    from automerge_tpu_torch.ops import registers as R
+    from automerge_tpu_torch.ops import registers_kernel
+
+    card = card_line()
+    log('card: %s | torch %s cuda %s' % (card, torch.__version__,
+                                          torch.version.cuda))
+    dev = torch.device('cuda')
+
+    # -- build: the C++ runtime and one nvcc per kernel, all at once -----
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        core = ex.submit(_lib.build)
+        kern = ex.submit(_build.build_all)
+        core_path, kern_paths = core.result(), kern.result()
+    log('build: %.1f s (%s, %s) on %s' % (
+        time.perf_counter() - t0, os.path.basename(core_path),
+        ', '.join(os.path.basename(p) for p in kern_paths.values()), card))
+
+    # -- capture the kernels' main-path inputs (largest call of each) ----
+    captured = {'registers': [], 'dominance': []}
+    originals = []
+    current = {'path': 'warm-up'}
+
+    def capture(mod, name, key):
+        orig = getattr(mod, name)
+        originals.append((mod, name, orig))
+
+        def wrapper(*args, **kw):
+            captured[key].append((current['path'],
+                                  [a.clone() for a in args], dict(kw)))
+            return orig(*args, **kw)
+        setattr(mod, name, wrapper)
+
+    capture(registers_kernel, 'resolve_registers_cuda', 'registers')
+    capture(dominance_kernel, 'dominance_grouped_cuda', 'dominance')
+
+    K1, K2 = registers_kernel.LAUNCH_METRIC, dominance_kernel.LAUNCH_METRIC
+    launches = {K1: 0, K2: 0}
+    by_path = {K1: {}, K2: {}}
+
+    def drive(label, fn, need):
+        """Runs one main path with the counts zeroed just before and read
+        just after; fails if a kernel it needs never launched."""
+        torch.cuda.synchronize()
+        current['path'] = label
+        trace.reset()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        snap = trace.snapshot()
+        m = snap['metrics']
+        got = {k: int(m.get(k, 0)) for k in (K1, K2)}
+        for k in need:
+            if got[k] == 0:
+                raise AssertionError('%s: kernel %s never launched' %
+                                     (label, k))
+        if m.get('fallback.oracle', 0):
+            raise AssertionError('%s: %d register rows took the C++ oracle'
+                                 % (label, m['fallback.oracle']))
+        for k in got:
+            launches[k] += got[k]
+            by_path[k][label] = got[k]
+        log('%s: %.3f s wall, launches %s, spans %s on %s' % (
+            label, wall, got, {k: round(v, 4)
+                               for k, v in sorted(snap['spans'].items())},
+            card))
+        return out, wall
+
+    # warm-up: CUDA context, kernel modules, allocator (a separate pool)
+    warm = workloads.build_config_3(random.Random(1), n_docs=64)
+    NativeDocPool().apply_batch_bytes(msgpack.packb(
+        {str(k): v for k, v in warm.items()}, use_bin_type=True))
+    torch.cuda.synchronize()
+    for calls in captured.values():
+        calls.clear()
+
+    # -- phase 1: config 3, the headline catch-up batch ------------------
+    batch3 = workloads.build_config_3(random.Random(7))
+    n_ops3 = workloads.op_count(batch3)
+    payload3 = msgpack.packb({str(k): v for k, v in batch3.items()},
+                             use_bin_type=True)
+    pool3 = NativeDocPool()
+    out_gpu, wall3 = drive('config3 gpu', lambda: pool3.apply_batch_bytes(
+        payload3), need=(K1, K2))
+    cpu3 = NativeDocPool(device='cpu')
+    t = time.perf_counter()
+    out_cpu = cpu3.apply_batch_bytes(payload3)
+    log('config3 cpu (plain versions): %.3f s (host CPU, beside %s)'
+        % (time.perf_counter() - t, card))
+    if out_gpu != out_cpu:
+        raise AssertionError('config3: GPU and CPU patch bytes differ')
+    patches = msgpack.unpackb(out_gpu, raw=False)
+    if len(patches) != len(batch3) or any(
+            len(p['clock']) != workloads.N_ACTORS or not p['diffs']
+            for p in patches.values()):
+        raise AssertionError('config3: malformed patches')
+    log('config3: %d docs, %d ops, patch bytes equal (%d B); %.0f ops/s on '
+        '%s' % (len(patches), n_ops3, len(out_gpu), n_ops3 / wall3, card))
+
+    # -- phase 2: config 4, the map-only batch ---------------------------
+    batch4 = workloads.build_config_4(random.Random(7))
+    n_ops4 = workloads.op_count(batch4)
+    payload4 = msgpack.packb({str(k): v for k, v in batch4.items()},
+                             use_bin_type=True)
+    pool4 = NativeDocPool()
+    out_gpu4, wall4 = drive('config4 gpu', lambda: pool4.apply_batch_bytes(
+        payload4), need=(K1,))
+    if out_gpu4 != NativeDocPool(device='cpu').apply_batch_bytes(payload4):
+        raise AssertionError('config4: GPU and CPU patch bytes differ')
+    log('config4: %d docs, %d ops, patch bytes equal; %.0f ops/s on %s'
+        % (len(batch4), n_ops4, n_ops4 / wall4, card))
+
+    # -- phase 3: carry-across (v1 checkpoints, CPU pool -> GPU pool) -----
+    docs = [str(d) for d in range(512)]
+    blobs = {d: cpu3.save(d) for d in docs}
+    pool_l = NativeDocPool()
+    drive('load gpu', lambda: pool_l.load_batch(blobs), need=(K1, K2))
+    for d in docs:
+        if pool_l.get_patch(d) != cpu3.get_patch(d):
+            raise AssertionError('load: doc %s patch differs' % d)
+    log('load: %d v1 checkpoints replayed, patches equal' % len(docs))
+
+    # -- phase 4: kernels against their plain versions on the card -------
+    for mod, name, orig in originals:
+        setattr(mod, name, orig)
+    rs = np.random.RandomState(2024)
+    T_ = torch.from_numpy
+    rows = {}
+
+    def check_registers(label, args, window):
+        got = registers_kernel.resolve_registers_cuda(*args, window=window)
+        want = R.resolve_registers(*args, window=window)
+        bad = sum(int((got[k] != want[k]).sum()) for k in want)
+        err = max(int((got[k].long() - want[k].long()).abs().max())
+                  if want[k].numel() else 0 for k in want)
+        ms = device_ms(torch, registers_launcher(torch, _build, args, window))
+        log('registers %s: mismatches %d, kernel %.4f ms on %s'
+            % (label, bad, ms, card))
+        if bad:
+            raise AssertionError('registers %s: %d mismatches' % (label, bad))
+        return err, ms
+
+    def check_dominance(label, args, chunk=64):
+        got = dominance_kernel.dominance_grouped_cuda(*args, chunk=chunk)
+        want = list_rank.dominance_grouped(*args, chunk=chunk)
+        ov = args[5]
+        bad = int((got[ov] != want[ov]).sum())
+        err = int((got[ov].long() - want[ov].long()).abs().max()) \
+            if ov.any() else 0
+        ms = device_ms(torch, dominance_launcher(
+            torch, _build, dominance_kernel.SMEM_MAX_L, args, chunk))
+        log('dominance %s: mismatches %d (max count %d), kernel %.4f ms '
+            'on %s' % (label, bad, int(want.max()), ms, card))
+        if bad:
+            raise AssertionError('dominance %s: %d mismatches' % (label, bad))
+        return err, ms
+
+    err1 = 0
+    for W in (2, 4, 8, 16):
+        for T in (1000, 65536):
+            for A in (8, 64):
+                case = registers_case(np, rs, T, A, W)
+                args = [T_(x).to(dev) for x in case]
+                e, _ = check_registers('W=%d T=%d A=%d' % (W, T, A), args, W)
+                err1 = max(err1, e)
+    err2 = 0
+    for O, L, T in ((4096, 64, 128), (4096, 256, 320), (4096, 256, 512)):
+        args = [T_(x).to(dev) for x in dominance_case(np, rs, O, L, T)]
+        e, _ = check_dominance('O=%d L=%d T=%d' % (O, L, T), args)
+        err2 = max(err2, e)
+    args = [T_(x).to(dev) for x in dominance_case(np, rs, 1, 100000, 512,
+                                                    all_visible=True)]
+    e, _ = check_dominance('O=1 L=100000 T=512 (global scratch)', args)
+    err2 = max(err2, e)
+
+    # at the main path's own inputs (every call of the three driven
+    # paths): kernel, wrapper and plain times.  A row's `launches` sums
+    # the driven paths (`launches_by_path` splits it); its times and
+    # shape are those of the largest call, made on `timed_path`
+    for path, args, kw in captured['registers']:
+        window = kw.get('window', R.WINDOW)
+        T = args[0].numel()
+        e, ms = check_registers('main path T=%d W=%d' % (T, window), args,
+                                window)
+        err1 = max(err1, e)
+        wrapper_ms = device_ms(torch, lambda: registers_kernel
+                               .resolve_registers_cuda(*args, window=window))
+        plain_ms = device_ms(torch, lambda: R.resolve_registers(
+            *args, window=window), reps=3, rounds=3)
+        bound, by = registers_bound(args, window)
+        log('registers %s T=%d W=%d: kernel %.4f ms, wrapper %.4f ms, '
+            'plain %.4f ms, bound %.4f ms (%s) on %s' % (
+                path, T, window, ms, wrapper_ms, plain_ms, bound, by, card))
+        if 'registers' not in rows or T * window > rows['registers'][0]:
+            rows['registers'] = (T * window, {
+                'name': 'registers', 'route': 'cuda',
+                'source': 'automerge_tpu_torch/csrc/registers.cu',
+                'replaces': 'automerge_tpu/ops/pallas_registers.py:48',
+                'launches': launches[K1], 'launches_by_path': by_path[K1],
+                'timed_path': path, 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': bound, 'bound_by': by, 'library_ms': None,
+                'wrapper_ms': wrapper_ms, 'shape': 'T=%d W=%d A=%d' % (
+                    T, window, args[6].shape[1])})
+
+    for path, args, kw in captured['dominance']:
+        chunk = kw.get('chunk', 64)
+        O, L = args[0].shape
+        T = args[2].shape[1]
+        e, ms = check_dominance('main path O=%d L=%d T=%d' % (O, L, T),
+                                args, chunk)
+        err2 = max(err2, e)
+        wrapper_ms = device_ms(torch, lambda: dominance_kernel
+                               .dominance_grouped_cuda(*args, chunk=chunk))
+        plain_ms = device_ms(torch, lambda: list_rank.dominance_grouped(
+            *args, chunk=chunk), reps=3, rounds=3)
+        bound, by = dominance_bound(args)
+        log('dominance %s O=%d L=%d T=%d: kernel %.4f ms, wrapper '
+            '%.4f ms, plain %.4f ms, bound %.4f ms (%s) on %s' % (
+                path, O, L, T, ms, wrapper_ms, plain_ms, bound, by, card))
+        if 'dominance' not in rows or O * L * T > rows['dominance'][0]:
+            rows['dominance'] = (O * L * T, {
+                'name': 'dominance', 'route': 'cuda',
+                'source': 'automerge_tpu_torch/csrc/dominance.cu',
+                'replaces': 'automerge_tpu/ops/pallas_dominance.py:42',
+                'launches': launches[K2], 'launches_by_path': by_path[K2],
+                'timed_path': path, 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': bound, 'bound_by': by, 'library_ms': None,
+                'wrapper_ms': wrapper_ms,
+                'shape': 'O=%d L=%d T=%d chunk=%d' % (O, L, T, chunk)})
+    rows['registers'][1]['max_abs_err'] = err1
+    rows['dominance'][1]['max_abs_err'] = err2
+    return [rows['registers'][1], rows['dominance'][1]]
+
+
+if __name__ == '__main__':
+    sys.exit(main())
