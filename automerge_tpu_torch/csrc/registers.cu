@@ -5,32 +5,51 @@
 // version automerge_tpu_torch/ops/registers.py::resolve_registers.
 //
 // Rows are sorted by (group, time) on the host (`sort_idx`).  Sorted row
-// i sees itself (slot 0) and its W predecessors i-1..i-W (slots 1..W) as
-// the register's member window; predecessors before row 0 are invalid,
-// as the Pallas kernel's front pad of group -2 makes them.  One thread
-// resolves one sorted row:
-//   * it gathers its W+1 members through sort_idx (no host-side
-//     (group, time) gather, no halo copies),
-//   * reads each pairwise clock P[u][v] = clock_table[cidx_u * A +
-//     actor_v] straight from the deduplicated clock table with int64
-//     index arithmetic (cidx * A passes 2^31 on large pool tables),
-//   * keeps supersession / aliveness as bit masks in registers and
-//     orders survivors by a pairwise count over (actor desc, time desc),
-//   * writes winner, conflicts, alive_after, visible_before, overflow and
-//     the packed transfer word at the row's original index sort_idx[i].
+// i sees itself and its W predecessors i-1..i-W as the register's member
+// window; predecessors before row 0 are invalid (group -2), as the
+// Pallas kernel's front pad makes them.  A member is valid when it lies
+// in row i's group (group >= 0); sorted rows of one group are
+// contiguous, so the valid members are the run of same-group rows back
+// from i, capped at W.  Member v is superseded in row i's window when a
+// later valid member u (v < u <= i) is not concurrent with it.
 //
-// Bound: bytes.  Each row reads 8 int32 columns and W+1 gathered member
-// rows plus at most W(W+1) clock entries, and writes W+5 words; the
-// arithmetic is a few hundred integer operations per row.  The member
-// gathers hit rows just before i in sorted order, so they are served
-// from L1/L2 rather than device memory; the design keeps every
-// intermediate in registers so no [T, W+1, W+1] tensor is ever stored.
+// Design for W = 4, 8 and 16 (the staged form).  A block owns kRows
+// consecutive sorted rows [i0, i0 + kRows), one per thread:
+//   * it gathers rows [i0 - W, i0 + kRows) through sort_idx ONCE each
+//     into shared memory (group, time, actor, seq, clock row, is_del,
+//     source row), instead of every thread re-gathering its W + 1
+//     members (6 (W + 1) loads per row at W = 16);
+//   * per staged row v it finds its first superseder
+//       first_sup(v) = least u in (v, min(v + W, last staged row)]
+//                      of v's group with not-concurrent(u, v),
+//     stopping at the group's end: at most W clock pairs (two int64-
+//     indexed clock-table reads each; cidx * A passes 2^31 on large pool
+//     tables) per row instead of up to W (W + 1) / 2 per row;
+//   * row i's masks then follow from shared memory with no pair loop:
+//     superseded(v) = first_sup(v) <= i, superseded without self
+//     (visible_before) = first_sup(v) <= i - 1, overflow = the valid run
+//     reaches W predecessors.  The cap at the tile's last row is exact:
+//     every superseder that matters for a row of the tile is <= that row;
+//   * alive members are ordered by a pairwise (actor desc, time desc)
+//     count over the alive set only; coinciding positions sum src + 1 as
+//     the plain version's masked sums do;
+//   * the row's W conflict words go out as 16-byte vector stores at its
+//     original row sort_idx[i].
+// W = 2 keeps the thread-per-row form of the first port (below): with
+// three members per row it holds 78% of its byte bound, and the staged
+// form ran slower there (PERF.md).
 //
-// Any T is accepted (no multiple-of-128 restriction).  W is 2, 4, 8 or
-// 16: the pool picks the smallest power of two that holds the batch's
-// widest register group, up to ops/registers.py SLIDING_MAX; member masks
-// are 32-bit, so W + 1 <= 32.  alive_in is all true by contract (checked
-// by the Python wrapper).
+// Bound: bytes, plus the random-gather rate.  Each row's eight input
+// words are read once (the sort_idx permutation makes the column reads
+// random; the columns of a main-path batch fit L2), about two clock
+// entries per row are read, and W + 5 words are written, scattered to
+// the original rows; the arithmetic is a few dozen integer operations
+// per row.
+//
+// Any T is accepted.  W is 2, 4, 8 or 16: the pool picks the smallest
+// power of two that holds the batch's widest register group, up to
+// ops/registers.py SLIDING_MAX; member masks are 32-bit, so W + 1 <= 32.
+// alive_in is all true by contract (checked by the Python wrapper).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,9 +60,138 @@ constexpr int32_t kWinnerNone = 0xffffff;
 constexpr int kAliveShift = 24;
 constexpr int32_t kAliveMax = 63;
 constexpr int kOvfShift = 30;
+constexpr int kRows = 128;          // sorted rows (and threads) per block
+constexpr int kNoSup = 1 << 30;     // first_sup: no superseder in the tile
 
 template <int W>
-__global__ void registers_kernel(
+__global__ void __launch_bounds__(kRows) registers_kernel(
+    const int32_t* __restrict__ group, const int32_t* __restrict__ time,
+    const int32_t* __restrict__ actor, const int32_t* __restrict__ seq,
+    const uint8_t* __restrict__ is_del, const int32_t* __restrict__ sort_idx,
+    const int32_t* __restrict__ clock_table,
+    const int32_t* __restrict__ clock_idx, int32_t* __restrict__ winner,
+    int32_t* __restrict__ conflicts, int32_t* __restrict__ alive_after,
+    uint8_t* __restrict__ visible_before, uint8_t* __restrict__ overflow,
+    int32_t* __restrict__ packed, int64_t T, int64_t A) {
+  static_assert(W % 4 == 0, "conflict rows go out as 16-byte stores");
+  constexpr int S = kRows + W;      // staged rows: W halo + the tile
+  __shared__ int32_t g_s[S], q_s[S], c_s[S], src_s[S];
+  __shared__ uint8_t del_s[S];
+  // per staged row, one 8-byte read each: (actor, time), and (group,
+  // first superseder or -1 for a del op, which never joins the register)
+  __shared__ int2 at_s[S], gs_s[S];
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int tid = threadIdx.x;
+
+  for (int k = tid; k < S; k += kRows) {
+    const int64_t p = i0 - W + k;
+    if (p >= 0 && p < T) {
+      const int32_t s = sort_idx[p];
+      src_s[k] = s;
+      g_s[k] = group[s];
+      at_s[k] = make_int2(actor[s], time[s]);
+      q_s[k] = seq[s];
+      c_s[k] = clock_idx[s];
+      del_s[k] = is_del[s];
+    } else {
+      src_s[k] = -1;
+      g_s[k] = -2;
+      at_s[k] = make_int2(0, 0);
+      q_s[k] = c_s[k] = 0;
+      del_s[k] = 0;
+    }
+  }
+  __syncthreads();
+
+  for (int v = tid; v < S; v += kRows) {
+    int fs = kNoSup;
+    const int32_t gv = g_s[v];
+    if (gv >= 0) {
+      const int64_t row_v = static_cast<int64_t>(c_s[v]) * A;
+      const int32_t av = at_s[v].x, qv = q_s[v];
+      const int hi = min(v + W, S - 1);
+      for (int u = v + 1; u <= hi && g_s[u] == gv; ++u) {
+        const int32_t p_uv = clock_table[static_cast<int64_t>(c_s[u]) * A +
+                                         av];
+        const int32_t p_vu = clock_table[row_v + at_s[u].x];
+        if (!(p_uv < qv && p_vu < q_s[u])) {
+          fs = u;
+          break;
+        }
+      }
+    }
+    gs_s[v] = make_int2(gv, del_s[v] ? -1 : fs);
+  }
+  __syncthreads();
+
+  if (i0 + tid >= T) return;
+  const int x = W + tid;          // sorted row i0 + tid, staged
+  const int32_t gc = g_s[x];
+  const int64_t o = src_s[x];     // its original row
+  // slot w holds staged row x - w.  The loop is unrolled on purpose: the
+  // rolled form, with a data-dependent trip count, was miscompiled by
+  // ptxas -O3 (CUDA 12.9), which reused its decremented index after the
+  // loop as if it were the row's own.
+  int run = 0;                    // valid predecessors
+  unsigned alive = 0, alive_before = 0;
+  if (gc >= 0) {
+    if (!del_s[x]) alive = alive_before = 1u;
+    bool in_run = true;
+#pragma unroll
+    for (int w = 1; w <= W; ++w) {
+      const int2 m = gs_s[x - w];
+      in_run = in_run && m.x == gc;
+      if (in_run) {
+        run = w;
+        if (m.y > x) alive |= 1u << w;
+        if (m.y > x - 1) alive_before |= 1u << w;
+      }
+    }
+  }
+  const int32_t n_alive = __popc(alive);
+
+  int32_t win_acc = 0;
+  int32_t conf_acc[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) conf_acc[k] = 0;
+  for (unsigned mu = alive; mu; mu &= mu - 1) {
+    const int u = x - (__ffs(mu) - 1);
+    const int2 me = at_s[u];
+    int pos = 0;
+    for (unsigned mv = alive; mv; mv &= mv - 1) {
+      const int2 m = at_s[x - (__ffs(mv) - 1)];
+      if (m.x > me.x || (m.x == me.x && m.y > me.y)) ++pos;
+    }
+    const int32_t src1 = src_s[u] + 1;
+    if (pos == 0) win_acc += src1;
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (pos == k + 1) conf_acc[k] += src1;
+  }
+  const int32_t win = win_acc - 1;
+  const bool ovf = gc >= 0 && run == W;
+
+  winner[o] = win;
+  int4* dst = reinterpret_cast<int4*>(conflicts + o * W);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k)
+    dst[k] = make_int4(conf_acc[4 * k] - 1, conf_acc[4 * k + 1] - 1,
+                       conf_acc[4 * k + 2] - 1, conf_acc[4 * k + 3] - 1);
+  alive_after[o] = n_alive;
+  visible_before[o] = (alive_before >> 1) != 0;
+  overflow[o] = ovf;
+  packed[o] = (win >= 0 ? win : kWinnerNone) |
+              (min(n_alive, kAliveMax) << kAliveShift) |
+              (static_cast<int32_t>(ovf) << kOvfShift);
+}
+
+// W = 2: one thread resolves one sorted row from its three members,
+// gathered through sort_idx, with the three clock pairs read directly.
+// At this width the form holds 78% of its byte bound and the staged form
+// above ran slower on the pool's config-3 input, so W = 2 keeps this body
+// (PERF.md).
+template <int W>
+__global__ void registers_row_kernel(
     const int32_t* __restrict__ group, const int32_t* __restrict__ time,
     const int32_t* __restrict__ actor, const int32_t* __restrict__ seq,
     const uint8_t* __restrict__ is_del, const int32_t* __restrict__ sort_idx,
@@ -148,9 +296,12 @@ __global__ void registers_kernel(
 template <int W>
 cudaError_t launch(const void* const* in, void* const* out, int64_t T,
                    int64_t A, cudaStream_t stream) {
-  const int threads = 128;
-  const int64_t blocks = (T + threads - 1) / threads;
-  registers_kernel<W><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+  const int64_t blocks = (T + kRows - 1) / kRows;
+  auto kernel = [] {
+    if constexpr (W == 2) return registers_row_kernel<W>;
+    else return registers_kernel<W>;
+  }();
+  kernel<<<static_cast<unsigned>(blocks), kRows, 0, stream>>>(
       static_cast<const int32_t*>(in[0]), static_cast<const int32_t*>(in[1]),
       static_cast<const int32_t*>(in[2]), static_cast<const int32_t*>(in[3]),
       static_cast<const uint8_t*>(in[4]), static_cast<const int32_t*>(in[5]),
@@ -170,6 +321,9 @@ extern "C" int amtpu_torch_registers(
     void* visible_before, void* overflow, void* packed, int64_t T, int W,
     int64_t A, void* stream) {
   if (T <= 0) return 0;
+  // the conflict rows go out as 16-byte vector stores (W >= 4)
+  if (reinterpret_cast<uintptr_t>(conflicts) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const void* in[8] = {group, time, actor, seq, is_del, sort_idx,
                        clock_table, clock_idx};
   void* out[6] = {winner, conflicts, alive_after, visible_before, overflow,

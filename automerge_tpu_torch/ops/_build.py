@@ -6,8 +6,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and compiles with
 hash of the source and flags, built under a lock, renamed into place
 when complete); it is loaded with ctypes at first use.  Tensors cross as
 `data_ptr()` integers and the launch goes on PyTorch's current stream.
-Every entry point returns the `cudaError_t` of its launch, which
-`check` turns into an exception.  A failed build or launch raises:
+Every launching entry point returns the `cudaError_t` of its launch,
+which `check` turns into an exception.  A failed build or launch raises:
 nothing here falls back to another implementation.
 
 `build_all()` starts one `nvcc` per source at once and waits for all of
@@ -32,16 +32,18 @@ BUILD_DIR = os.path.join(buildcache.BUILD_ROOT, 'kernels')
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC']
 
-#: kernel name -> {C function: argtypes}; every function returns int
+#: kernel name -> {C function: (restype, argtypes)}
 KERNELS = {
     'registers': {
-        'amtpu_torch_registers': [ctypes.c_void_p] * 14 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+        'amtpu_torch_registers': (ctypes.c_int, [ctypes.c_void_p] * 14 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]),
     },
     'dominance': {
-        'amtpu_torch_dominance': [ctypes.c_void_p] * 8 + [
+        'amtpu_torch_dominance': (ctypes.c_int, [ctypes.c_void_p] * 8 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_void_p]),
+        'amtpu_torch_dominance_scratch': (ctypes.c_int64, [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]),
     },
 }
 
@@ -79,9 +81,9 @@ def kernel(name):
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(buildcache.finish(_start(name)))
-        for fn_name, argtypes in KERNELS[name].items():
+        for fn_name, (restype, argtypes) in KERNELS[name].items():
             fn = getattr(lib, fn_name)
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             fn.argtypes = argtypes
         _loaded[name] = lib
     return lib

@@ -16,23 +16,31 @@ from .list_rank import dominance_grouped
 #: launches of the CUDA kernel (the trace counter's name)
 LAUNCH_METRIC = 'launch.dominance'
 
-#: largest L whose int32 visibility + rank rows (8 * L bytes) the kernel
-#: keeps in shared memory (227 KB per block on Hopper, minus headroom);
-#: longer objects keep visibility in a global scratch row
-SMEM_MAX_L = 25600
+
+def scratch_for(lib, O, L, T, chunk, device):
+    """The global scratch the kernel asks for at this shape (None when
+    every object's histogram fits shared memory): int32 histogram and
+    tile-sum rows for long objects."""
+    n = lib.amtpu_torch_dominance_scratch(O, L, T, chunk)
+    if n == 0:
+        return None
+    return torch.empty((n // 4,), dtype=torch.int32, device=device)
 
 
 def dominance_grouped_cuda(vis0, elem_rank, op_elem, op_rank, op_delta,
                            op_valid, chunk=64):
     """The CUDA kernel; same arguments and output as
-    `list_rank.dominance_grouped`.  Inputs must lie on one CUDA device."""
+    `list_rank.dominance_grouped`.  Inputs must lie on one CUDA device.
+    Element ranks must lie in [-1, L), as `linearize` gives them (an
+    object's rank is below its element count, which its padded row
+    holds)."""
     if vis0.device.type != 'cuda':
         raise ValueError('the dominance kernel takes CUDA tensors, got %s'
                          % vis0.device)
     O, L = vis0.shape
     T = op_elem.shape[1]
-    if T % chunk != 0 or not 1 <= chunk <= 128:
-        raise ValueError('T=%d must be a multiple of chunk=%d (<= 128)'
+    if chunk < 1 or T % chunk != 0:
+        raise ValueError('T=%d must be a multiple of chunk=%d'
                          % (T, chunk))
     vis0 = vis0.to(torch.float32).contiguous()
     elem_rank = elem_rank.to(torch.int32).contiguous()
@@ -48,15 +56,13 @@ def dominance_grouped_cuda(vis0, elem_rank, op_elem, op_rank, op_delta,
     index = torch.empty((O, T), dtype=torch.int32, device=vis0.device)
     if O == 0 or T == 0:
         return index
-    use_smem = L <= SMEM_MAX_L
-    scratch = None if use_smem else torch.empty(
-        (O, L), dtype=torch.int32, device=vis0.device)
     lib = _build.kernel('dominance')
+    scratch = scratch_for(lib, O, L, T, chunk, vis0.device)
     err = lib.amtpu_torch_dominance(
         vis0.data_ptr(), elem_rank.data_ptr(), ops[0].data_ptr(),
         ops[1].data_ptr(), ops[2].data_ptr(), op_valid.data_ptr(),
         index.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        O, L, T, chunk, 1 if use_smem else 0, _build.stream_of(vis0))
+        O, L, T, chunk, _build.stream_of(vis0))
     _build.check(err, 'dominance')
     trace.metric(LAUNCH_METRIC)
     return index

@@ -18,8 +18,11 @@ port's C++ host runtime and both CUDA kernels from this checkout, then:
      batched replay: every doc's patch must equal the CPU pool's;
   4. holds each kernel against its plain PyTorch version on the card,
      bit-equal (integer outputs, tolerance 0), at the inputs the main
-     path gave it and at random shapes, and times kernel and plain
-     version with CUDA events.
+     path gave it, at random shapes and at the edges of each design
+     (register groups of exactly W and W + 1 rows across tile edges;
+     elementless dominance ops at chunk edges, objects past the shared-
+     memory budget, one 100,000-element list), and times kernel and
+     plain version with CUDA events.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -91,22 +94,20 @@ def registers_launcher(torch, _build, args, window):
     return launch
 
 
-def dominance_launcher(torch, _build, smem_max_l, args, chunk):
-    """The dominance kernel's C entry point alone, on an output (and
-    scratch row) allocated once."""
+def dominance_launcher(torch, _build, dominance_kernel, args, chunk):
+    """The dominance kernel's C entry point alone, on an output (and the
+    scratch the kernel asks for) allocated once."""
     vis0 = args[0].to(torch.float32).contiguous()
     ins = [vis0] + [a.to(torch.int32).contiguous() for a in args[1:5]] + \
         [args[5].to(torch.bool).contiguous()]
     O, L = vis0.shape
     T = ins[2].shape[1]
     index = torch.empty((O, T), dtype=torch.int32, device=vis0.device)
-    use_smem = L <= smem_max_l
-    scratch = None if use_smem else torch.empty(
-        (O, L), dtype=torch.int32, device=vis0.device)
     lib = _build.kernel('dominance')
+    scratch = dominance_kernel.scratch_for(lib, O, L, T, chunk, vis0.device)
     ptrs = [t.data_ptr() for t in ins + [index]] + \
         [None if scratch is None else scratch.data_ptr()]
-    extra = (O, L, T, chunk, int(use_smem), _build.stream_of(vis0))
+    extra = (O, L, T, chunk, _build.stream_of(vis0))
 
     def launch(keep=(ins, index, scratch)):
         _build.check(lib.amtpu_torch_dominance(*ptrs, *extra), 'dominance')
@@ -132,6 +133,30 @@ def registers_case(np, rs, T, A, W):
     return (group, time_, actor, seq, is_del, sort_idx, table, cidx)
 
 
+def registers_groups_case(np, rs, sizes, A, pad):
+    """Register groups of the given row counts, in (group, time) order
+    after `pad` padding rows (group -1 sorts first), so groups sit at
+    chosen offsets against the kernel's 128-row tiles; state rows (negative
+    times) open every eighth group; original row order is shuffled."""
+    sizes = np.asarray(sizes)
+    group = np.concatenate([np.full(pad, -1), np.repeat(
+        np.arange(sizes.size), sizes)]).astype(np.int32)
+    T = group.size
+    time_ = np.arange(T, dtype=np.int32)
+    starts = pad + np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    time_[starts[::8]] = -1 - np.arange(starts[::8].size, dtype=np.int32)
+    C = max(T // 4, 1)
+    cols = [group, time_, rs.randint(0, A, T).astype(np.int32),
+            rs.randint(1, 12, T).astype(np.int32),
+            rs.random_sample(T) < 0.1,
+            rs.randint(0, C, T).astype(np.int32)]
+    inv = np.argsort(rs.permutation(T))
+    group, time_, actor, seq, is_del, cidx = [c[inv] for c in cols]
+    table = rs.randint(0, 12, (C, A)).astype(np.int32)
+    sort_idx = np.lexsort((time_, group)).astype(np.int32)
+    return (group, time_, actor, seq, is_del, sort_idx, table, cidx)
+
+
 def dominance_case(np, rs, O, L, T, all_visible=False):
     n = rs.randint(1, L + 1, O) if not all_visible else np.full(O, L)
     t = rs.randint(1, T + 1, O) if not all_visible else np.full(O, T)
@@ -151,32 +176,147 @@ def dominance_case(np, rs, O, L, T, all_visible=False):
     return (v0, er, oe, orank, od, ov)
 
 
+def elementless_at_chunk_edges(np, case, chunk):
+    """Valid ops with op_elem == -1 and a nonzero delta as the first and
+    the last op of every chunk: they count inside their chunk only."""
+    v0, er, oe, orank, od, ov = [np.array(a) for a in case]
+    for c0 in range(0, oe.shape[1], chunk):
+        for t in (c0, c0 + chunk - 1):
+            oe[ov[:, t], t] = -1
+            od[ov[:, t], t] = 1 if t % 2 else -1
+    return v0, er, oe, orank, od, ov
+
+
 # -- bounds: the least time the card could take for the same work ---------
 
-def registers_bound(args, window):
-    group, clock_table = args[0], args[6]
+def registers_bound(torch, args, window):
+    """Bytes: the eight input columns, the clock-table rows that
+    clock_idx references (not the unused rows of a pool table) and the
+    outputs, each once.  Operations: one compare and one add per window
+    slot and row, the floor of any form of this function."""
+    group, clock_table, clock_idx = args[0], args[6], args[7]
     T = group.numel()
-    read = T * (6 * 4 + 1) + clock_table.numel() * 4
+    rows = int(torch.unique(clock_idx).numel())
+    read = T * (6 * 4 + 1) + rows * clock_table.shape[1] * 4
     written = T * (3 * 4 + 4 * window + 2)
-    ops = T * (window + 1) * (window + 1) * 4
+    ops = T * (window + 1) * 2
     t_bytes = (read + written) / H100_BYTES_PER_S
     t_ops = ops / H100_INT_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
         else 'operations'
 
 
-def dominance_bound(args):
-    vis0, elem_rank, op_valid = args[0], args[1], args[5]
+def dominance_bound(args, chunk):
+    """Bytes: vis0 and elem_rank, the four op columns and the index,
+    each once.  Operations: the least the closed form needs -- one add
+    per rank bucket and object for the start-state prefix (L + 2), and a
+    compare and an add per pair of valid ops s < t in one chunk for the
+    in-chunk term (the earlier-chunk term is folded into the prefix)."""
+    vis0, op_valid = args[0], args[5]
     O, L = vis0.shape
     T = op_valid.shape[1]
     moved = O * L * 8 + O * T * (3 * 4 + 1) + O * T * 4
-    # one compare + one add per (valid op, valid element) of its object
-    ops = 2 * int(((elem_rank >= 0).sum(1).long() *
-                   op_valid.sum(1).long()).sum())
+    v = op_valid.reshape(O, T // chunk, chunk).sum(2).long()
+    ops = O * (L + 2) + 2 * int((v * (v - 1) // 2).sum())
     t_bytes = moved / H100_BYTES_PER_S
     t_ops = ops / H100_INT_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
         else 'operations'
+
+
+# -- each kernel against its plain version on the card ---------------------
+
+def check_registers(torch, card, label, args, window):
+    """Bit-equality of the register kernel with its plain version, and
+    the kernel's own time; returns (max abs error, ms)."""
+    from automerge_tpu_torch.ops import _build, registers_kernel
+    from automerge_tpu_torch.ops import registers as R
+    got = registers_kernel.resolve_registers_cuda(*args, window=window)
+    want = R.resolve_registers(*args, window=window)
+    bad = sum(int((got[k] != want[k]).sum()) for k in want)
+    err = max(int((got[k].long() - want[k].long()).abs().max())
+              if want[k].numel() else 0 for k in want)
+    ms = device_ms(torch, registers_launcher(torch, _build, args, window))
+    log('registers %s: mismatches %d, kernel %.4f ms on %s'
+        % (label, bad, ms, card))
+    if bad:
+        raise AssertionError('registers %s: %d mismatches' % (label, bad))
+    return err, ms
+
+
+def check_dominance(torch, card, label, args, chunk=64):
+    """Bit-equality of the dominance kernel with its plain version where
+    op_valid holds, and the kernel's own time; returns (error, ms)."""
+    from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
+    got = dominance_kernel.dominance_grouped_cuda(*args, chunk=chunk)
+    want = list_rank.dominance_grouped(*args, chunk=chunk)
+    ov = args[5]
+    bad = int((got[ov] != want[ov]).sum())
+    err = int((got[ov].long() - want[ov].long()).abs().max()) \
+        if ov.any() else 0
+    ms = device_ms(torch, dominance_launcher(torch, _build, dominance_kernel,
+                                             args, chunk))
+    log('dominance %s: mismatches %d (max count %d), kernel %.4f ms '
+        'on %s' % (label, bad, int(want.max()), ms, card))
+    if bad:
+        raise AssertionError('dominance %s: %d mismatches' % (label, bad))
+    return err, ms
+
+
+def kernel_cases(torch, np, card):
+    """Both kernels at random shapes and at the edges of their designs;
+    returns the largest error of each (0: bit-equal)."""
+    dev = torch.device('cuda')
+    rs = np.random.RandomState(2024)
+
+    def on_card(case):
+        return [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+
+    err1 = 0
+    for W in (2, 4, 8, 16):
+        for T in (1000, 65536):
+            for A in (8, 64):
+                e, _ = check_registers(torch, card, 'W=%d T=%d A=%d'
+                                       % (W, T, A), on_card(registers_case(
+                                           np, rs, T, A, W)), W)
+                err1 = max(err1, e)
+        # groups of exactly W and W + 1 rows (the overflow bit) and of
+        # random widths, offset so that they cross 128-row tile edges
+        sizes = np.concatenate([np.tile([W, W + 1], 1500),
+                                rs.randint(1, 2 * W + 2, 1500)])
+        e, _ = check_registers(torch, card, 'W=%d groups W and W+1 across '
+                               'tile edges' % W, on_card(
+                                   registers_groups_case(np, rs, sizes, 8,
+                                                         pad=5)), W)
+        err1 = max(err1, e)
+    e, _ = check_registers(torch, card, 'W=16 T=262149 all groups 16 rows',
+                           on_card(registers_groups_case(
+                               np, rs, [16] * 16384, 8, pad=5)), 16)
+    err1 = max(err1, e)
+
+    err2 = 0
+    for O, L, T in ((4096, 64, 128), (4096, 256, 320), (4096, 256, 512)):
+        e, _ = check_dominance(torch, card, 'O=%d L=%d T=%d' % (O, L, T),
+                               on_card(dominance_case(np, rs, O, L, T)))
+        err2 = max(err2, e)
+    e, _ = check_dominance(torch, card, 'O=1000 L=100 T=48 chunk=16',
+                           on_card(dominance_case(np, rs, 1000, 100, 48)),
+                           chunk=16)
+    err2 = max(err2, e)
+    e, _ = check_dominance(torch, card, 'O=4096 L=192 T=192 elementless '
+                           'ops at chunk edges', on_card(
+                               elementless_at_chunk_edges(
+                                   np, dominance_case(np, rs, 4096, 192, 192),
+                                   64)))
+    err2 = max(err2, e)
+    for label, (O, L, T) in (
+            ('O=64 L=30000 T=512 (past shared memory)', (64, 30000, 512)),
+            ('O=2 L=50000 T=4096 (long, many chunks)', (2, 50000, 4096)),
+            ('O=1 L=100000 T=512 (long list)', (1, 100000, 512))):
+        e, _ = check_dominance(torch, card, label, on_card(dominance_case(
+            np, rs, O, L, T, all_visible=(O == 1))))
+        err2 = max(err2, e)
+    return err1, err2
 
 
 def main():
@@ -343,55 +483,8 @@ def run(torch):
     # -- phase 4: kernels against their plain versions on the card -------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
-    rs = np.random.RandomState(2024)
-    T_ = torch.from_numpy
     rows = {}
-
-    def check_registers(label, args, window):
-        got = registers_kernel.resolve_registers_cuda(*args, window=window)
-        want = R.resolve_registers(*args, window=window)
-        bad = sum(int((got[k] != want[k]).sum()) for k in want)
-        err = max(int((got[k].long() - want[k].long()).abs().max())
-                  if want[k].numel() else 0 for k in want)
-        ms = device_ms(torch, registers_launcher(torch, _build, args, window))
-        log('registers %s: mismatches %d, kernel %.4f ms on %s'
-            % (label, bad, ms, card))
-        if bad:
-            raise AssertionError('registers %s: %d mismatches' % (label, bad))
-        return err, ms
-
-    def check_dominance(label, args, chunk=64):
-        got = dominance_kernel.dominance_grouped_cuda(*args, chunk=chunk)
-        want = list_rank.dominance_grouped(*args, chunk=chunk)
-        ov = args[5]
-        bad = int((got[ov] != want[ov]).sum())
-        err = int((got[ov].long() - want[ov].long()).abs().max()) \
-            if ov.any() else 0
-        ms = device_ms(torch, dominance_launcher(
-            torch, _build, dominance_kernel.SMEM_MAX_L, args, chunk))
-        log('dominance %s: mismatches %d (max count %d), kernel %.4f ms '
-            'on %s' % (label, bad, int(want.max()), ms, card))
-        if bad:
-            raise AssertionError('dominance %s: %d mismatches' % (label, bad))
-        return err, ms
-
-    err1 = 0
-    for W in (2, 4, 8, 16):
-        for T in (1000, 65536):
-            for A in (8, 64):
-                case = registers_case(np, rs, T, A, W)
-                args = [T_(x).to(dev) for x in case]
-                e, _ = check_registers('W=%d T=%d A=%d' % (W, T, A), args, W)
-                err1 = max(err1, e)
-    err2 = 0
-    for O, L, T in ((4096, 64, 128), (4096, 256, 320), (4096, 256, 512)):
-        args = [T_(x).to(dev) for x in dominance_case(np, rs, O, L, T)]
-        e, _ = check_dominance('O=%d L=%d T=%d' % (O, L, T), args)
-        err2 = max(err2, e)
-    args = [T_(x).to(dev) for x in dominance_case(np, rs, 1, 100000, 512,
-                                                    all_visible=True)]
-    e, _ = check_dominance('O=1 L=100000 T=512 (global scratch)', args)
-    err2 = max(err2, e)
+    err1, err2 = kernel_cases(torch, np, card)
 
     # at the main path's own inputs (every call of the three driven
     # paths): kernel, wrapper and plain times.  A row's `launches` sums
@@ -400,14 +493,14 @@ def run(torch):
     for path, args, kw in captured['registers']:
         window = kw.get('window', R.WINDOW)
         T = args[0].numel()
-        e, ms = check_registers('main path T=%d W=%d' % (T, window), args,
-                                window)
+        e, ms = check_registers(torch, card, 'main path T=%d W=%d'
+                                % (T, window), args, window)
         err1 = max(err1, e)
         wrapper_ms = device_ms(torch, lambda: registers_kernel
                                .resolve_registers_cuda(*args, window=window))
         plain_ms = device_ms(torch, lambda: R.resolve_registers(
             *args, window=window), reps=3, rounds=3)
-        bound, by = registers_bound(args, window)
+        bound, by = registers_bound(torch, args, window)
         log('registers %s T=%d W=%d: kernel %.4f ms, wrapper %.4f ms, '
             'plain %.4f ms, bound %.4f ms (%s) on %s' % (
                 path, T, window, ms, wrapper_ms, plain_ms, bound, by, card))
@@ -426,14 +519,14 @@ def run(torch):
         chunk = kw.get('chunk', 64)
         O, L = args[0].shape
         T = args[2].shape[1]
-        e, ms = check_dominance('main path O=%d L=%d T=%d' % (O, L, T),
-                                args, chunk)
+        e, ms = check_dominance(torch, card, 'main path O=%d L=%d T=%d'
+                                % (O, L, T), args, chunk)
         err2 = max(err2, e)
         wrapper_ms = device_ms(torch, lambda: dominance_kernel
                                .dominance_grouped_cuda(*args, chunk=chunk))
         plain_ms = device_ms(torch, lambda: list_rank.dominance_grouped(
             *args, chunk=chunk), reps=3, rounds=3)
-        bound, by = dominance_bound(args)
+        bound, by = dominance_bound(args, chunk)
         log('dominance %s O=%d L=%d T=%d: kernel %.4f ms, wrapper '
             '%.4f ms, plain %.4f ms, bound %.4f ms (%s) on %s' % (
                 path, O, L, T, ms, wrapper_ms, plain_ms, bound, by, card))

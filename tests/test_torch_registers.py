@@ -5,6 +5,12 @@ All outputs are integers or booleans, so the tolerance is exact
 equality.  The sliding-window plain version (the CPU side of the CUDA
 kernel) is compared with both the JAX XLA function and the Pallas TPU
 kernel run in interpret mode.
+
+`_tiled_model` is a numpy model of the CUDA kernel's algorithm
+(`csrc/registers.cu`): tiles of sorted rows that stage their W-row halo
+once, the first superseder of each staged row, and masks read off it.
+It is held to the same outputs, tile sizes smaller than a group
+included.
 """
 
 import random
@@ -163,3 +169,157 @@ def test_packed_word_codec_round_trip():
     assert w2.tolist() == winner.tolist()
     assert a2.tolist() == [0, 1, 63, R.PACKED_ALIVE_MAX]
     assert o2.tolist() == ovf.int().tolist()
+
+
+_NO_SUP = 1 << 30
+
+
+def _tiled_model(case, window, rows=128):
+    """The register kernel's algorithm in numpy, one tile of `rows`
+    sorted rows at a time.  Returns the dict of `resolve_registers`."""
+    group, time, actor, seq, is_del, sort_idx, table, cidx = \
+        [np.asarray(x) for x in case]
+    T, W, S = group.shape[0], window, rows + window
+    out = {'winner': np.full(T, -1, np.int32),
+           'conflicts': np.full((T, W), -1, np.int32),
+           'alive_after': np.zeros(T, np.int32),
+           'visible_before': np.zeros(T, bool),
+           'overflow': np.zeros(T, bool)}
+    for i0 in range(0, T, rows):
+        p = np.arange(i0 - W, i0 + rows)
+        inb = (p >= 0) & (p < T)
+        src = np.where(inb, sort_idx[np.clip(p, 0, T - 1)], -1)
+        row = np.maximum(src, 0)
+        g = np.where(inb, group[row], -2)
+        tm, a, q, c = (np.where(inb, col[row], 0)
+                       for col in (time, actor, seq, cidx))
+        dl = inb & is_del[row]
+        sup = np.full(S, _NO_SUP)
+        for v in range(S):                       # first superseder
+            if g[v] < 0:
+                continue
+            for u in range(v + 1, min(v + W, S - 1) + 1):
+                if g[u] != g[v]:
+                    break
+                if not (table[c[u], a[v]] < q[v] and
+                        table[c[v], a[u]] < q[u]):
+                    sup[v] = u
+                    break
+        for k in range(min(rows, T - i0)):
+            x = W + k
+            gc = g[x]
+            run = 0
+            while gc >= 0 and run < W and g[x - run - 1] == gc:
+                run += 1
+            alive = [x] if gc >= 0 and not dl[x] else []
+            before = False
+            for w in range(1, run + 1):
+                m = x - w
+                if dl[m]:
+                    continue
+                if sup[m] > x:
+                    alive.append(m)
+                if sup[m] > x - 1:
+                    before = True
+            win, conf = 0, [0] * W
+            for u in alive:
+                pos = sum(1 for v in alive
+                          if a[v] > a[u] or (a[v] == a[u] and tm[v] > tm[u]))
+                if pos == 0:
+                    win += src[u] + 1
+                elif pos <= W:
+                    conf[pos - 1] += src[u] + 1
+            o = src[x]
+            out['winner'][o] = win - 1
+            out['conflicts'][o] = np.array(conf) - 1
+            out['alive_after'][o] = len(alive)
+            out['visible_before'][o] = before
+            out['overflow'][o] = gc >= 0 and run == W
+    out['packed'] = R.pack_register_word(
+        *(torch.from_numpy(out[k]) for k in
+          ('winner', 'alive_after', 'overflow'))).numpy()
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in out.items()}
+
+
+def _shaped_case(sizes, W, seed, A=6, pad=3, n_state=4):
+    """Register groups of the given row counts in (group, time) order,
+    `pad` padding rows (group -1) and `n_state` state rows (negative
+    times) at the front of the first groups; clocks are random, so
+    members are a mix of concurrent and superseding."""
+    rng = np.random.RandomState(seed)
+    group = np.concatenate([np.full(n, gi, np.int32)
+                            for gi, n in enumerate(sizes)] +
+                           [np.full(pad, -1, np.int32)])
+    T = group.shape[0]
+    time = np.zeros(T, np.int32)
+    start = 0
+    for n in sizes:                                 # increasing per group
+        time[start:start + n] = np.sort(rng.choice(10 * T, n,
+                                                   replace=False))
+        start += n
+    time[:n_state] = -(n_state - np.arange(n_state))   # state rows first
+    perm = rng.permutation(T)                      # original row order
+    C = max(T // 2, 1)
+    table = rng.randint(0, 8, (C, A)).astype(np.int32)
+    cols = [group, time, rng.randint(0, A, T).astype(np.int32),
+            rng.randint(1, 9, T).astype(np.int32), rng.random_sample(T) < 0.1,
+            None, table, rng.randint(0, C, T).astype(np.int32)]
+    inv = np.argsort(perm)
+    for k in (0, 1, 2, 3, 4, 7):
+        cols[k] = cols[k][inv]
+    cols[5] = np.lexsort((cols[1], cols[0])).astype(np.int32)
+    return tuple(cols)
+
+
+_MODEL_CASES = [
+    # (sizes of the groups in sorted order, W, tile rows, padding rows);
+    # padding rows (group -1) sort first, so pad=0 puts a group at row 0
+    ([16] * 20, 16, 128, 0),          # every group exactly W = 16 rows
+    ([16, 17, 15, 33, 2, 1], 16, 5, 3),  # W and W + 1; tiles split groups
+    ([2, 3, 1, 2, 2, 3, 4], 2, 3, 0),
+    ([4, 5, 9, 1, 4], 4, 4, 2),
+    ([8, 9, 8, 20, 3], 8, 6, 1),
+    ([40], 8, 128, 0),                # one group wider than the window
+]
+
+
+@pytest.mark.parametrize('sizes,window,rows,pad', _MODEL_CASES)
+def test_tiled_model_edge_cases(sizes, window, rows, pad):
+    """Groups of exactly W and W + 1 rows (the overflow bit), a group at
+    row 0, padding rows, state rows at negative times, groups that cross
+    a tile edge and tiles narrower than a group: the kernel's algorithm
+    equals the port's plain version and the JAX function."""
+    case = _shaped_case(sizes, window, seed=len(sizes) * window + rows,
+                        pad=pad)
+    got = _tiled_model(case, window, rows=rows)
+    _assert_equal(got, _port(case, window))
+    group, time, actor, seq, is_del, sort_idx, clock_table, idx = case
+    want = jax_registers.resolve_registers(
+        group, time, actor, seq, is_del=is_del,
+        alive_in=np.ones_like(is_del), window=window, sort_idx=sort_idx,
+        clock_table=clock_table, clock_idx=idx)
+    _assert_equal(got, want)
+    assert got['overflow'].any() == (max(sizes) > window)
+
+
+@pytest.mark.parametrize('seed', [1, 2, 7, 11])
+@pytest.mark.parametrize('window,rows', [(2, 128), (4, 7), (8, 3),
+                                         (16, 128), (16, 5)])
+def test_tiled_model_matches_plain_and_jax(seed, window, rows):
+    """The kernel's algorithm over the random register cases, whole tiles
+    and tiles narrower than the window alike."""
+    case = _RegisterCases()._random_case(seed, window=window)
+    got = _tiled_model(case, window, rows=rows)
+    _assert_equal(got, _port(case, window))
+    group, time, actor, seq, is_del, sort_idx, clock_table, idx = case
+    want = jax_registers.resolve_registers(
+        group, time, actor, seq, is_del=is_del,
+        alive_in=np.ones_like(is_del), window=window, sort_idx=sort_idx,
+        clock_table=clock_table, clock_idx=idx)
+    _assert_equal(got, want)
+
+
+def test_tiled_model_matches_pallas_interpret():
+    case = _RegisterCases()._random_case(5, window=4)
+    want = resolve_registers_pallas(*case, window=4, interpret=True)
+    _assert_equal(_tiled_model(case, 4, rows=6), want)
