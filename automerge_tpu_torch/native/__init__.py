@@ -24,8 +24,13 @@ Batches whose layout does not fit the fused dispatch (several dominance
 size classes, member-mode overflow, T >= 2^24) resolve registers and
 ranks first and run dominance after the mid phase, one dispatch per
 size class.  Member-mode rows the host flagged (more concurrent writers
-than the window, or one change assigning a key twice) are resolved by
-the C++ oracle replay inside mid and counted as `fallback.oracle`.
+than the window, or one change assigning a key twice) go up the
+escalation ladder (`ops.registers.escalate_dispatch_groups`): in phase a
+one member-kernel pass per tier chunk right after the base dispatch; in
+phase b the tier words merge into the packed word on the device and
+only their conflict rows come back.  Groups too wide for every tier or
+over the scratch budget are resolved by the C++ oracle replay inside mid
+and counted as `fallback.oracle`.
 """
 
 import ctypes
@@ -43,6 +48,15 @@ from ..ops.dominance_kernel import dominance_grouped_auto
 from ..utils import doc_key, map_header
 from ._lib import lib, loaded, take_buf
 from .clock_cache import PoolClockCache
+
+#: row count from which the packed word's 24-bit winner field is too
+#: narrow: larger batches read the unpacked register outputs and merge
+#: the escalation tiers on the host (`_escalate`)
+PACKED_ROWS_MAX = 1 << 24
+#: the conflict rows of a member batch come back as one dense [Tp, W]
+#: transfer, sliced on the host, once more than 1 / CONF_DENSE_THRESH of
+#: its rows need one; below that, as a row gather on the device
+CONF_DENSE_THRESH = 4
 
 # ---------------------------------------------------------------------------
 # batch handles: every successful begin is paired with exactly one free
@@ -207,8 +221,9 @@ class NativeDocPool:
         # C++ builds member windows once a register group is wider than
         # WINDOW.  A sliding window that covers the widest group is exact
         # and cannot saturate, so up to SLIDING_MAX the register kernel
-        # resolves the batch in sliding mode and the member layout (whose
-        # host overflow flags would send rows to the oracle) goes unused.
+        # resolves the batch in sliding mode in one pass and the member
+        # layout (whose host overflow flags would send rows up the
+        # escalation ladder) goes unused.
         # The C++ batch still holds use_members, any_ovf, n_pre_ovf,
         # mem_idx/host_ovf and the escalation layout it built at begin.
         # They only shaped begin's own choices (fused_ok, the resident
@@ -246,6 +261,11 @@ class NativeDocPool:
                 reg_out, rank = self._run_resolver(
                     L, bh, Tp, Ap, CTp, Lp, max_obj, ctx)
                 ctx.update(mode='old', reg_out=reg_out, rank=rank)
+                # member-mode overflow flags come from the host, so the
+                # escalation tiers launch right behind the base dispatch
+                # and are collected in phase b
+                if hovf is not None and hovf.any():
+                    ctx['esc'] = self._escalation_dispatch(L, ctx)
         return ctx
 
     def _register_views(self, L, bh, Tp, Ap, CTp, ctab_dev=None):
@@ -353,9 +373,28 @@ class NativeDocPool:
                         _ip(conf_offs), _ip(conf_vals), len(conf_rows),
                         None, None, _ip(dom_idx), 0) != 0:
                     _raise_last()
+        elif Tp > 0 and ctx['hovf'] is not None and Tp < PACKED_ROWS_MAX:
+            # packed member epilogue: one [Tp] word (the tier results
+            # merged into it on the device) and a sparse CSR of conflict
+            # rows at per-row widths; only the ladder's residue rides the
+            # oracle replay
+            with trace.span('device.collect'):
+                packed, conf_rows, conf_offs, conf_vals, residual = \
+                    self._collect_member_packed(ctx, ctx['reg_out'], Tp)
+                rank = np.ascontiguousarray(ctx['rank'], np.int32)
+            trace.metric('collect.packed_member_batches')
+            with trace.span('host.mid'):
+                if L.amtpu_mid_packed(
+                        bh, _ip(packed), ctx['weff'], _ip(conf_rows),
+                        _ip(conf_offs), _ip(conf_vals), len(conf_rows),
+                        None if residual is None else _up(residual),
+                        _ip(rank), None, 0) != 0:
+                    _raise_last()
+            self._run_dominance(L, bh)
         else:
             with trace.span('device.collect'):
                 if Tp > 0:
+                    trace.metric('collect.full_matrix_readback')
                     winner, conflicts, alive, overflow = \
                         self._unpack_register_out(ctx['reg_out'], Tp)
                     if ctx['hovf'] is not None:
@@ -366,12 +405,18 @@ class NativeDocPool:
                             trace.metric('fallback.member_overflow_rows',
                                          n_ovf)
                             trace.metric('fallback.overflow_batches')
-                    self._count_oracle(overflow)
+                            winner, conflicts, alive, overflow = \
+                                self._escalate(ctx, winner, conflicts, alive,
+                                               overflow)
+                    elif overflow.any():
+                        raise AssertionError('a register row was flagged '
+                                             'overflow in sliding mode')
                 else:
                     winner = conflicts = alive = np.zeros(0, np.int32)
                     overflow = np.zeros(0, np.uint8)
                 rank = ctx['rank']
-            self._mid(L, bh, winner, conflicts, alive, overflow, rank)
+            self._mid(L, bh, winner, conflicts, alive, overflow, rank,
+                      self._mid_window(ctx, conflicts))
             self._run_dominance(L, bh)
         with trace.span('host.finish'):
             if L.amtpu_finish(bh) != 0:
@@ -383,19 +428,27 @@ class NativeDocPool:
 
     @staticmethod
     def _count_oracle(overflow):
-        """Rows still flagged go to the C++ oracle replay in amtpu_mid
-        (the escalation tiers of the JAX package are not ported)."""
+        """Counts the rows still flagged after the escalation ladder: the
+        groups wider than every tier or over the scratch budget, which
+        the C++ oracle replay in amtpu_mid resolves.  Returns the count."""
         n_oracle = int(np.asarray(overflow, bool).sum())
         if n_oracle:
             trace.metric('fallback.oracle', n_oracle)
+        return n_oracle
 
-    def _mid(self, L, bh, winner, conflicts, alive, overflow, rank):
+    @staticmethod
+    def _mid_window(ctx, conflicts):
+        """Conflicts-matrix width handed to amtpu_mid: the escalation
+        merge may have widened it beyond the dispatch window."""
+        return int(conflicts.shape[1]) if conflicts.ndim == 2 \
+            else ctx['weff']
+
+    def _mid(self, L, bh, winner, conflicts, alive, overflow, rank, width):
         winner = np.ascontiguousarray(winner, np.int32)
         conflicts = np.ascontiguousarray(conflicts, np.int32)
         alive = np.ascontiguousarray(alive, np.int32)
         overflow = np.ascontiguousarray(overflow, np.uint8)
         rank = np.ascontiguousarray(rank, np.int32)
-        width = int(conflicts.shape[1]) if conflicts.ndim == 2 else 0
         with trace.span('host.mid'):
             if L.amtpu_mid(bh, _ip(winner), _ip(conflicts), width,
                            _ip(alive), _up(overflow), _ip(rank), 0) != 0:
@@ -423,7 +476,7 @@ class NativeDocPool:
         """Host winner/conflicts/alive/overflow: one packed transfer plus
         the conflict rows that need it; the unpacked outputs once the
         packed winner field (24 bits) is too narrow."""
-        if Tp >= 1 << 24:
+        if Tp >= PACKED_ROWS_MAX:
             return (_to_host(reg_out['winner']),
                     _to_host(reg_out['conflicts']),
                     _to_host(reg_out['alive_after']),
@@ -447,6 +500,129 @@ class NativeDocPool:
             (packed >> register_ops.PACKED_OVF_SHIFT) & 1, np.uint8)
         return winner, alive, overflow
 
+    # -- the escalation ladder ------------------------------------------
+
+    @staticmethod
+    def _esc_layout_groups(L, bh):
+        """CSR group records (rows, lens, vals, width) from the escalation
+        layout C++ built at begin for member-mode overflow, read through
+        private copies (the C++ buffers go with the batch)."""
+        dims = (ctypes.c_int64 * 3)()
+        L.amtpu_esc_dims(bh, dims)
+        n_groups, R, M = [int(x) for x in dims]
+        if n_groups == 0:
+            return []
+        meta = np.array(_view(L.amtpu_esc_group_meta(bh), (n_groups, 3)))
+        rows_all = np.array(_view(L.amtpu_esc_rows(bh), (R,)))
+        off = np.array(_view(L.amtpu_esc_mem_off(bh), (R + 1,)))
+        vals_all = np.array(_view(L.amtpu_esc_mem(bh), (M,)))
+        groups = []
+        for rs, k, width in meta.tolist():
+            groups.append((rows_all[rs:rs + k], np.diff(off[rs:rs + k + 1]),
+                           vals_all[off[rs]:off[rs + k]], width))
+        return groups
+
+    def _escalation_dispatch(self, L, ctx):
+        """Tier-ladder dispatch for the batch's flagged rows over the
+        escalation layout C++ built at begin: it builds one whenever a row
+        is flagged, with a group record for every flagged group.  Columns
+        are private host copies; the tiers read the base dispatch's device
+        clock table."""
+        bh = ctx['bh']
+        Tp = ctx['dims'][1]
+        groups = self._esc_layout_groups(L, bh)
+        if not groups:
+            raise AssertionError('member rows are flagged but C++ built no '
+                                 'escalation layout')
+        col = {k: np.array(_view(getattr(L, 'amtpu_col_' + c)(bh), (Tp,)))
+               for k, c in (('t', 't'), ('a', 'a'), ('s', 's'),
+                            ('cidx', 'clockidx'))}
+        is_del = np.array(_view(L.amtpu_col_d(bh), (Tp,)), bool)
+        return register_ops.escalate_dispatch_groups(
+            groups, col['t'], col['a'], col['s'], is_del, ctx['ctab'],
+            col['cidx'], want_visible_before=False)
+
+    def _escalate(self, ctx, winner, conflicts, alive, overflow):
+        """The ladder on the full-matrix route (Tp >= PACKED_ROWS_MAX):
+        collects the tiers phase a dispatched and merges them into the
+        host arrays, clearing the flags of the rows they resolved.  Rows
+        still flagged take the oracle replay."""
+        esc = ctx.pop('esc')
+        chunks = register_ops.escalate_overflow_collect_arrays(esc[0])
+        if chunks:
+            winner, conflicts, alive, overflow = \
+                register_ops.merge_escalated_arrays(
+                    np.array(winner, np.int32), np.array(conflicts, np.int32),
+                    np.array(alive, np.int32), np.array(overflow, np.uint8),
+                    chunks)
+        self._count_oracle(overflow)
+        return winner, conflicts, alive, overflow
+
+    def _collect_member_packed(self, ctx, reg_out, Tp):
+        """Packed member epilogue: each tier chunk's packed words scatter
+        into the base word on the device (`merge_packed_rows`), ONE [Tp]
+        word comes back, and the conflict rows that need it (base rows
+        outside flagged groups, tier rows) come back as a CSR at per-row
+        widths.  Rows the ladder could not hold stay flagged in the
+        residual vector for the oracle replay.
+
+        Returns (packed [Tp] int32, conf_rows, conf_offs, conf_vals,
+        residual uint8 [Tp] | None)."""
+        flagged = ctx['hovf'].astype(bool)
+        residual = None
+        pending = []
+        if flagged.any():
+            trace.metric('fallback.member_overflow_rows', int(flagged.sum()))
+            trace.metric('fallback.overflow_batches')
+            pending = ctx.pop('esc')[0]
+        base = reg_out['packed']
+        for _W, sub_rows, out in pending:
+            rows = torch.from_numpy(np.asarray(sub_rows, np.int64)).to(
+                self.device)
+            register_ops.merge_packed_rows(base, rows, out['packed'])
+        packed = _to_host(base)
+        esc_parts = []            # (global rows, global conflicts) pairs
+        if flagged.any():
+            residual = ctx['hovf'].astype(np.uint8)
+            for ch in register_ops.escalate_overflow_collect_arrays(
+                    pending, need_winner=False):
+                residual[ch.rows] = 0
+                if ch.conf_rows.size:
+                    esc_parts.append((ch.rows[ch.conf_rows], ch.conflicts))
+            if not self._count_oracle(residual):
+                residual = None
+        # base conflict rows: registers outside flagged groups that kept
+        # more than one member (a flagged group's base output is void: it
+        # resolved in the tiers or takes the oracle)
+        base_mask = ((packed >> register_ops.PACKED_ALIVE_SHIFT)
+                     & register_ops.PACKED_ALIVE_MASK) > 1
+        base_mask &= ~flagged
+        conf_rows_b = np.nonzero(base_mask)[0].astype(np.int32)
+        conf_vals_b = self._fetch_conflict_rows(reg_out, conf_rows_b, Tp)
+        weff = ctx['weff']
+        rows_parts = [conf_rows_b]
+        vals_parts = [np.ascontiguousarray(conf_vals_b, np.int32).reshape(-1)]
+        lens = [np.full(conf_rows_b.size, weff, np.int32)]
+        for rows_g, conf_g in esc_parts:
+            rows_parts.append(np.ascontiguousarray(rows_g, np.int32))
+            vals_parts.append(np.ascontiguousarray(conf_g,
+                                                   np.int32).reshape(-1))
+            lens.append(np.full(rows_g.size, conf_g.shape[1], np.int32))
+        conf_rows = np.ascontiguousarray(np.concatenate(rows_parts), np.int32)
+        conf_offs = np.zeros(conf_rows.size + 1, np.int32)
+        np.cumsum(np.concatenate(lens), out=conf_offs[1:])
+        conf_vals = np.ascontiguousarray(np.concatenate(vals_parts), np.int32)
+        return packed, conf_rows, conf_offs, conf_vals, residual
+
+    def _fetch_conflict_rows(self, reg_out, conf_rows, Tp):
+        """Conflict rows of a member batch: a row gather on the device
+        while they are rare, the whole [Tp, W] matrix sliced on the host
+        once more than Tp / CONF_DENSE_THRESH rows need one."""
+        if conf_rows.size * CONF_DENSE_THRESH > Tp:
+            return np.ascontiguousarray(
+                _to_host(reg_out['conflicts'])[conf_rows], np.int32)
+        return self._gather_conflict_rows(reg_out, conf_rows)
+
     def _run_resolver(self, L, bh, Tp, Ap, CTp, Lp, max_obj, ctx):
         """Registers + ranks for the layout-fallback path.  Returns
         (reg_out device dict | None, rank host int32 [Lp])."""
@@ -456,6 +632,7 @@ class NativeDocPool:
         if Tp > 0:
             r = self._register_views(L, bh, Tp, Ap, CTp, ctx.get('ctab_dev'))
             mem_dev = None if mem is None else self._upload(mem)
+            ctx['ctab'] = r['ctab']          # the escalation tiers read it
         if Lp > 0:
             e = self._arena_views(L, bh, Lp)
             n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1

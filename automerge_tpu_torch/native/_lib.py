@@ -53,6 +53,15 @@ _ABI = {
     'amtpu_dom_v0': (ctypes.POINTER(ctypes.c_float), [_vp, _i64]),
     'amtpu_dom_ov': (_u8p, [_vp, _i64]),
     'amtpu_dom_set_indexes': (None, [_vp, _i64, _i32p]),
+    # escalation member layout (core.cpp builds it at begin for member-
+    # mode overflow): dims = [n_groups, n_rows, mem_total]; group_meta
+    # packs (row_start, n, width) i64 triples; mem is CSR over group-
+    # LOCAL indexes with i64 offsets [n_rows + 1]
+    'amtpu_esc_dims': (None, [_vp, _i64p]),
+    'amtpu_esc_group_meta': (_i64p, [_vp]),
+    'amtpu_esc_rows': (_i32p, [_vp]),
+    'amtpu_esc_mem_off': (_i64p, [_vp]),
+    'amtpu_esc_mem': (_i32p, [_vp]),
     'amtpu_resclk_info': (None, [_vp, _i64p]),
     'amtpu_resclk_tab': (_i32p, [_vp]),
     'amtpu_get_patch': (_u8p, [_vp, _cp, _i64p]),

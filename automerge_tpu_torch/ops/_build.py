@@ -45,6 +45,10 @@ KERNELS = {
         'amtpu_torch_dominance_scratch': (ctypes.c_int64, [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]),
     },
+    'members': {
+        'amtpu_torch_members': (ctypes.c_int, [ctypes.c_void_p] * 13 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]),
+    },
 }
 
 _loaded = {}

@@ -6,15 +6,26 @@ causally supersedes it (supersedes = NOT concurrent).  Supersession is
 evaluated over a window of W member rows per op: the W sorted
 predecessors (sliding mode, `resolve_registers`) or host-built candidate
 rows (member mode, `resolve_registers_members`).  A full sliding window
-is flagged `overflow`; the pool routes flagged rows to the C++ oracle.
+is flagged `overflow`.  Member-mode groups the host flags (more
+concurrent writers than the window, or one change assigning a key
+twice) go up the escalation ladder below: wider member-window passes,
+one per power-of-two tier, and only groups too wide for every tier take
+the C++ oracle.
 
-All functions take and return torch tensors on one device.  The sliding
-mode runs through `registers_kernel.resolve_registers_auto`: the
-hand-written CUDA kernel on a CUDA device, `resolve_registers` (below)
-on the CPU.  Outputs are int32 / bool and bit-equal across devices.
+The device functions take and return torch tensors on one device.  The
+sliding mode runs through `registers_kernel.resolve_registers_auto`, the
+member mode through `members_kernel.resolve_registers_members_auto`:
+the hand-written CUDA kernel on a CUDA device, the plain version
+(below) on the CPU.  Outputs are int32 / bool and bit-equal across
+devices.  The ladder's host half works on numpy columns.
 """
 
+from collections import namedtuple
+
+import numpy as np
 import torch
+
+from .. import trace
 
 # Window of predecessors considered per op (the C++ member-window width).
 WINDOW = 8
@@ -84,22 +95,25 @@ def _supersession(P, m_seq, later, m_valid):
     return later & ~concurrent & m_valid[:, :, None] & m_valid[:, None, :]
 
 
-def resolve_registers_members(time, actor, seq, mem_idx, is_del,
-                              clock_table, clock_idx, window=WINDOW,
-                              want_visible_before=True):
-    """Member-explicit register resolution, exact for up to `window`
-    concurrent actor streams per key: `mem_idx[t, w]` is the row of the
-    w-th candidate predecessor of row t (-1 = empty).  Supersession among
-    members orders by time.  Returns the dict of `resolve_registers` in
-    original row order, with `overflow` all false (the host flags wider
-    groups itself); `visible_before` only when asked for."""
+#: member pairs per block of rows in `resolve_registers_members`: bounds
+#: its [rows, W+1, W+1] intermediates (a tier of 8192 rows at W = 64 would
+#: otherwise hold 0.3 GB of int64 indexes at once)
+MEMBER_PAIRS_PER_BLOCK = 1 << 22
+
+
+def _members_block(time, actor, seq, mem_idx, is_del, clock_table,
+                   clock_idx, rows, W, want_visible_before):
+    """`resolve_registers_members` for the rows `rows` (a slice) of a
+    batch; member indexes refer to the whole batch."""
     T = time.shape[0]
-    W = window
     dev = time.device
-    valid_m = mem_idx >= 0
-    midx = mem_idx.clamp(0, max(T - 1, 0)).long()
-    all_idx = torch.cat([torch.arange(T, device=dev)[:, None], midx], dim=1)
-    all_valid = torch.cat([torch.ones((T, 1), dtype=torch.bool, device=dev),
+    mem = mem_idx[rows]
+    n = mem.shape[0]
+    valid_m = mem >= 0
+    midx = mem.clamp(0, max(T - 1, 0)).long()
+    own = torch.arange(rows.start, rows.start + n, device=dev)
+    all_idx = torch.cat([own[:, None], midx], dim=1)
+    all_valid = torch.cat([torch.ones((n, 1), dtype=torch.bool, device=dev),
                            valid_m], dim=1)
     m_actor = actor[all_idx]
     m_seq = seq[all_idx]
@@ -113,10 +127,44 @@ def resolve_registers_members(time, actor, seq, mem_idx, is_del,
     out = {'alive_after': alive.sum(dim=1).to(torch.int32)}
     out['winner'], out['conflicts'] = _order_by_paircount(
         m_actor, m_time, alive, all_idx, W)
-    out['overflow'] = torch.zeros((T,), dtype=torch.bool, device=dev)
     if want_visible_before:
         alive_before = all_valid & ~supersedes[:, 1:, :].any(dim=1) & ~m_del
         out['visible_before'] = alive_before[:, 1:].any(dim=1)
+    return out
+
+
+def resolve_registers_members(time, actor, seq, mem_idx, is_del,
+                              clock_table, clock_idx, window=WINDOW,
+                              want_visible_before=True):
+    """Member-explicit register resolution, exact for up to `window`
+    concurrent actor streams per key: `mem_idx[t, w]` is the row of the
+    w-th candidate predecessor of row t (-1 = empty).  Supersession among
+    members orders by time.  Returns the dict of `resolve_registers` in
+    original row order, with `overflow` all false (the host flags wider
+    groups itself) and `alive_after` unsaturated; `visible_before` only
+    when asked for.  The plain version of the CUDA kernel
+    (`csrc/members.cu`); rows resolve in blocks of at most
+    MEMBER_PAIRS_PER_BLOCK member pairs."""
+    T = time.shape[0]
+    W = window
+    step = max(1, MEMBER_PAIRS_PER_BLOCK // ((W + 1) * (W + 1)))
+    parts = [_members_block(time, actor, seq, mem_idx, is_del, clock_table,
+                            clock_idx, slice(i, min(i + step, T)), W,
+                            want_visible_before)
+             for i in range(0, T, step)]
+    if parts:
+        out = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    else:
+        dev = time.device
+        out = {'alive_after': torch.zeros((0,), dtype=torch.int32,
+                                          device=dev),
+               'winner': torch.zeros((0,), dtype=torch.int32, device=dev),
+               'conflicts': torch.zeros((0, W), dtype=torch.int32,
+                                        device=dev)}
+        if want_visible_before:
+            out['visible_before'] = torch.zeros((0,), dtype=torch.bool,
+                                                device=dev)
+    out['overflow'] = torch.zeros((T,), dtype=torch.bool, device=time.device)
     out['packed'] = pack_register_word(out['winner'], out['alive_after'])
     return out
 
@@ -192,12 +240,34 @@ def gather_rows(mat, rows):
     return mat.index_select(0, rows.long())
 
 
+def merge_packed_rows(base, rows, tier_packed):
+    """Scatters one escalation-tier chunk's packed words into the base
+    packed word on its device, IN PLACE (the JAX package donates the base
+    buffer to the same end), and returns `base`.  `rows` is the chunk's
+    row map (chunk slot -> batch row): tier-local winners translate to
+    batch rows through it, the alive bits carry over and the overflow bit
+    stays clear, since the scattered rows are resolved.  The port's chunks
+    carry no padding slots (the JAX package pads each chunk to a power of
+    two and drops the padding in this scatter)."""
+    win = tier_packed & PACKED_WINNER_MASK
+    n = rows.shape[0]
+    win_g = torch.where(win == PACKED_WINNER_NONE,
+                        torch.full_like(win, PACKED_WINNER_NONE),
+                        rows[win.clamp(0, max(n - 1, 0)).long()]
+                        .to(win.dtype))
+    word = (((tier_packed >> PACKED_ALIVE_SHIFT) & PACKED_ALIVE_MASK)
+            << PACKED_ALIVE_SHIFT) | win_g
+    base[rows.long()] = word
+    return base
+
+
 def _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
              sort_idx, mem_idx, window, want_visible_before=True):
     """Mode dispatch: member-explicit when the host built mem_idx, else
-    the sliding window (the CUDA kernel on a CUDA device)."""
+    the sliding window; on a CUDA device each runs its kernel."""
     if mem_idx is not None:
-        return resolve_registers_members(
+        from .members_kernel import resolve_registers_members_auto
+        return resolve_registers_members_auto(
             time, actor, seq, mem_idx, is_del, clock_table, clock_idx,
             window=window, want_visible_before=want_visible_before)
     from .registers_kernel import resolve_registers_auto
@@ -258,3 +328,237 @@ def resolve_rank_dominate(group, time, actor, seq, clock_table, clock_idx,
     idx = dominance_grouped_auto(v0, er, oe, orank, od, ov, chunk=chunk)
     combo = torch.cat([reg['packed'], idx.reshape(-1)])
     return reg, rank, combo
+
+
+# ---------------------------------------------------------------------------
+# the escalation ladder (host half)
+#
+# The base dispatch runs at WINDOW; for the groups the host flags, C++
+# begin builds a flat member-window layout (amtpu_esc_*, one CSR record
+# per group), which is re-dispatched through power-of-two tiers W in
+# {16, 32, 64, ...}: one device pass per tier chunk, never one host
+# replay per group.  Member candidates are the per-actor-latest rows of
+# each stream (only those can survive: an op with a newer same-actor
+# successor is always superseded), extended with every row of an actor's
+# latest seq, so that same-change duplicate assigns bucket into a tier
+# instead of the oracle.  A group reaches the C++ oracle only when its
+# candidate width exceeds every tier or its dispatch the scratch budget.
+# ---------------------------------------------------------------------------
+
+#: smallest escalation tier; the ladder is floor, 2*floor, 4*floor, ...
+ESCALATION_FLOOR = 16
+
+#: widest tier before a group falls back to the C++ oracle
+DEFAULT_MAX_TIER = 1024
+
+#: cap on one tier dispatch's [Tn, W+1, W+1] int32 intermediate, as the
+#: JAX package's XLA form builds it (counted at the padded row count).
+#: The port's kernel builds no such tensor, but the same budget decides
+#: which groups go to the oracle, so that the same rows reach it as in
+#: the JAX package (the oracle is exact too: only `fallback.oracle` and
+#: the tier counters would tell the two routings apart).  A group over
+#: the budget takes the oracle; many groups of one tier are chunked
+#: under it.
+DEFAULT_ESCALATION_BUDGET = 256 << 20
+
+#: row cap per tier-chunk dispatch (a lone group wider than the cap
+#: still dispatches alone: groups are indivisible)
+DEFAULT_ESC_CHUNK = 32768
+
+
+def _tier_of(n):
+    w = ESCALATION_FLOOR
+    while w < n:
+        w *= 2
+    return w
+
+
+def _dispatch_cost(n_rows, W):
+    """Bytes of the [Tn, W+1, W+1] int32 intermediate of one member-kernel
+    dispatch in the JAX package's XLA form, at the PADDED row count."""
+    return _tier_of(n_rows) * (W + 1) * (W + 1) * 4
+
+
+def _dispatch_members_tier(time, actor, seq, mem, is_del, clock_table,
+                           clock_idx, window, want_visible_before=True):
+    """One tier-chunk dispatch: private host arrays (fresh for every
+    chunk, never refilled) copied to the clock table's device, each a
+    synchronous pageable copy, then the member kernel, launched
+    asynchronously on the current stream."""
+    from .members_kernel import resolve_registers_members_auto
+    dev = clock_table.device
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+    return resolve_registers_members_auto(
+        up(time), up(actor), up(seq), up(mem), up(is_del), clock_table,
+        up(clock_idx), window=window,
+        want_visible_before=want_visible_before)
+
+
+def _chunk_mem(chunk, W):
+    """The padded [n, W] member matrix (chunk-local rows, -1 = empty) of a
+    tier chunk's CSR group records."""
+    n = sum(len(g[0]) for g in chunk)
+    mem = np.full((n, W), -1, np.int32)
+    offs = np.concatenate(([0], np.cumsum([len(g[0]) for g in chunk])))
+    lens_cat = np.concatenate([g[1] for g in chunk]).astype(np.int64)
+    total = int(lens_cat.sum())
+    if total:
+        vals_cat = np.concatenate(
+            [np.asarray(g[2], np.int64) + off for g, off in zip(chunk, offs)])
+        ii = np.repeat(np.arange(n), lens_cat)
+        starts = np.concatenate(([0], np.cumsum(lens_cat)[:-1]))
+        slot = np.arange(total) - np.repeat(starts, lens_cat)
+        mem[ii, slot] = vals_cat
+    return mem
+
+
+def escalate_dispatch_groups(groups, time, actor, seq, is_del,
+                             clock_table, clock_idx,
+                             want_visible_before=True):
+    """The dispatch half of the ladder over CSR group records
+    (rows, lens, vals, width), the C++ escalation layout (amtpu_esc_*):
+    `rows` are a flagged group's batch rows in (group, time) order and
+    row i's candidates are the next lens[i] entries of `vals` (group-
+    local indexes); `width` is the widest row's candidate count.
+
+    The columns time/actor/seq/is_del/clock_idx are host numpy arrays in
+    batch row order; clock_table is the [C, A] int32 clock table as a
+    tensor on the device the tiers run on.
+
+    Returns (pending, oracle_rows, tier_rows): `pending` is fed to
+    `escalate_overflow_collect_arrays`; oracle_rows (int32) are the rows
+    of groups wider than every tier or over the scratch budget, which
+    the caller resolves with the oracle; tier_rows is {W: rows resolved}.
+    `want_visible_before=False` drops that output and its compute."""
+    budget = DEFAULT_ESCALATION_BUDGET
+    time = np.asarray(time, np.int32)
+    actor = np.asarray(actor, np.int32)
+    seq = np.asarray(seq, np.int32)
+    is_del = np.asarray(is_del, bool)
+    clock_idx = np.asarray(clock_idx, np.int32)
+
+    pending = []
+    tier_rows = {}
+    tiers = {}        # W -> [group record]
+    oracle_rows = []
+    for grp in groups:
+        rows, width = grp[0], grp[3]
+        W = _tier_of(max(width, 1))
+        if W > DEFAULT_MAX_TIER or _dispatch_cost(len(rows), W) > budget:
+            # wider than every tier, or over the budget at any chunking:
+            # the one remaining oracle route, taken by the same groups as
+            # in the JAX package (DEFAULT_ESCALATION_BUDGET): tiers 512
+            # and 1024 are out of the budget's reach for any group whose
+            # width is below its row count
+            oracle_rows.extend(int(r) for r in rows)
+            continue
+        tiers.setdefault(W, []).append(grp)
+
+    for W, entries in sorted(tiers.items()):
+        # chunk the tier under the scratch budget and the row cap
+        chunks, cur, cur_rows = [], [], 0
+        for entry in entries:
+            n_rows = len(entry[0])
+            if cur and (_dispatch_cost(cur_rows + n_rows, W) > budget
+                        or cur_rows + n_rows > DEFAULT_ESC_CHUNK):
+                chunks.append(cur)
+                cur, cur_rows = [], 0
+            cur.append(entry)
+            cur_rows += n_rows
+        chunks.append(cur)
+        for chunk in chunks:
+            sub_rows = np.concatenate([g[0] for g in chunk])
+            n = len(sub_rows)
+            mem = _chunk_mem(chunk, W)
+            with trace.span('device.escalate'):
+                out = _dispatch_members_tier(
+                    time[sub_rows], actor[sub_rows], seq[sub_rows], mem,
+                    is_del[sub_rows], clock_table, clock_idx[sub_rows], W,
+                    want_visible_before=want_visible_before)
+            pending.append((W, sub_rows, out))
+            tier_rows[W] = tier_rows.get(W, 0) + n
+            trace.metric('fallback.escalated.w%d' % W, n)
+
+    return pending, np.asarray(oracle_rows, np.int32), tier_rows
+
+
+#: one collected tier chunk: `rows` are global batch rows; `winner` /
+#: `conflicts` carry GLOBAL row ids (-1 padded); `conf_rows` indexes
+#: into `rows` (only rows that kept >1 member have a conflicts row)
+EscalatedChunk = namedtuple(
+    'EscalatedChunk',
+    ['rows', 'winner', 'conf_rows', 'conflicts', 'alive',
+     'visible_before'])
+
+
+def _host(t, dtype):
+    return np.ascontiguousarray(t.cpu().numpy(), dtype)
+
+
+def escalate_overflow_collect_arrays(pending, need_winner=True):
+    """The collect half: brings back each tier chunk's O(Tn) outputs and
+    translates tier-local indexes to global batch rows.  Conflicts are
+    row-gathered on the device only where a register kept >1 member
+    (unsaturated alive_after > 1): the [Tn, W] matrix never transfers
+    whole.  Returns a list of EscalatedChunk.
+
+    `need_winner=False` skips the winner transfer and translation (chunk
+    .winner is None): `merge_packed_rows` already scattered the tier
+    winners into the packed word on the device."""
+    chunks = []
+    for W, sub_rows, out in pending:
+        n = len(sub_rows)
+        sub = np.ascontiguousarray(sub_rows, np.int64)
+        alive = _host(out['alive_after'][:n], np.int32)
+        if 'visible_before' in out:
+            vb = _host(out['visible_before'][:n], bool)
+        else:
+            vb = np.zeros((n,), bool)
+        conf_rows = np.nonzero(alive > 1)[0].astype(np.int32)
+        conf_g = np.zeros((0, W), np.int32)
+        if conf_rows.size:
+            conf = _host(gather_rows(out['conflicts'], torch.from_numpy(
+                conf_rows).to(out['conflicts'].device)), np.int32)
+            conf_g = np.where(conf >= 0, sub[np.clip(conf, 0, n - 1)],
+                              -1).astype(np.int32)
+        win_g = None
+        if need_winner:
+            win = _host(out['winner'][:n], np.int32)
+            win_g = np.where(win >= 0, sub[np.clip(win, 0, n - 1)],
+                             -1).astype(np.int32)
+        chunks.append(EscalatedChunk(sub.astype(np.int32), win_g,
+                                     conf_rows, conf_g, alive, vb))
+    return chunks
+
+
+def merge_escalated_arrays(winner, conflicts, alive, overflow, chunks):
+    """Merges EscalatedChunks into the (host, writable) register output
+    arrays: scatters winner/conflicts/alive, widens the conflicts matrix
+    when a tier kept more survivors than its column count, and clears the
+    overflow flag of every resolved row.  Flags left standing are exactly
+    the rows the caller routes to the oracle.  Returns the four (possibly
+    replaced) arrays."""
+    if not chunks:
+        return winner, conflicts, alive, overflow
+    width = conflicts.shape[1] if conflicts.ndim == 2 else 0
+    need = width
+    for ch in chunks:
+        if ch.conf_rows.size:
+            need = max(need, int((ch.conflicts >= 0).sum(axis=1)
+                                 .max(initial=0)))
+    if need > width:
+        wide = np.full((conflicts.shape[0], need), -1, conflicts.dtype)
+        if width:
+            wide[:, :width] = conflicts
+        conflicts = wide
+    for ch in chunks:
+        winner[ch.rows] = ch.winner
+        conflicts[ch.rows, :] = -1
+        if ch.conf_rows.size:
+            m = min(ch.conflicts.shape[1], conflicts.shape[1])
+            conflicts[ch.rows[ch.conf_rows], :m] = ch.conflicts[:, :m]
+        alive[ch.rows] = ch.alive
+        overflow[ch.rows] = 0
+    return winner, conflicts, alive, overflow

@@ -3,9 +3,13 @@
 `build_config_3` is the headline catch-up batch (concurrent interleaved
 Text editing: 4096 docs x 8 actors x 2 rounds x 16 ops per change, about
 1.06 M ops); `build_config_4` the map-only batch (1024 Table docs,
-16 rows per actor, concurrent row add/update).  Both return
-{doc: [change dict, ...]} and draw from the `random.Random` given, in
-the same order as `bench.py`, so the same seed gives the same batch.
+16 rows per actor, concurrent row add/update); `build_config_5` the
+64-replica catch-up backlog (8 docs x 64 replicas x 13 changes x 15
+root-key sets, 99,840 ops, every register group wider than the member
+window).  They return {doc: [change dict, ...]} and draw from the
+`random.Random` given, in the same order as `bench.py`, so the same seed
+gives the same batch.  `hot_key_batch` makes one hot map key with many
+concurrent writers, the shape that climbs the escalation ladder.
 """
 
 from .utils import ROOT_ID
@@ -103,6 +107,57 @@ def build_config_4(rng, n_docs=1024, rows_per_actor=16, n_actors=N_ACTORS):
                             'ops': ops})
         batch[d] = changes
     return batch
+
+
+def build_config_5(rng, n_docs=8, n_replicas=64, n_changes=13,
+                   ops_per_change=15):
+    """The 64-replica catch-up backlog of bench config 5 as ONE batch:
+    every replica authors one actor's stream of `n_changes` changes per
+    doc, each setting `ops_per_change` distinct root keys drawn from 64
+    (no deps: all replicas are concurrent).  Returns the union backlog
+    {doc: [change, ...]} (99,840 ops at the defaults)."""
+    union = {d: [] for d in range(n_docs)}
+    key_space = range(max(64, ops_per_change))
+    for d in range(n_docs):
+        for r in range(n_replicas):
+            actor = 'a%03d' % r
+            for seq in range(1, n_changes + 1):
+                ops = [{'action': 'set', 'obj': ROOT_ID, 'key': 'k%d' % k,
+                        'value': '%s-%d-%d' % (actor, seq, i)}
+                       for i, k in enumerate(
+                           rng.sample(key_space, ops_per_change))]
+                union[d].append({'actor': actor, 'seq': seq, 'deps': {},
+                                 'ops': ops})
+    return union
+
+
+def hot_key_batch(n_writers, with_list=True):
+    """One hot root key: a setup change, then one batch of `n_writers`
+    concurrent changes that each set the key once, a register group of
+    `n_writers` rows.  With `with_list`, the setup makes a list and each
+    writer also inserts into it and sets the new element, so the batch
+    keeps list work.  Returns the two batches [{doc: [setup]},
+    {doc: writers}]."""
+    ops = [{'action': 'set', 'obj': ROOT_ID, 'key': 'title', 'value': 't'}]
+    if with_list:
+        ops = [{'action': 'makeList', 'obj': 'l'},
+               {'action': 'link', 'obj': ROOT_ID, 'key': 'list',
+                'value': 'l'},
+               {'action': 'ins', 'obj': 'l', 'key': '_head', 'elem': 1},
+               {'action': 'set', 'obj': 'l', 'key': 'a0:1', 'value': 'x'}]
+    setup = {'actor': 'a0', 'seq': 1, 'deps': {}, 'ops': ops}
+    writers = []
+    for a in range(n_writers):
+        actor = 'w%03d' % a
+        w_ops = [{'action': 'set', 'obj': ROOT_ID, 'key': 'hot', 'value': a}]
+        if with_list:
+            w_ops += [{'action': 'ins', 'obj': 'l', 'key': 'a0:1',
+                       'elem': 2 + a},
+                      {'action': 'set', 'obj': 'l',
+                       'key': '%s:%d' % (actor, 2 + a), 'value': 'v%d' % a}]
+        writers.append({'actor': actor, 'seq': 1, 'deps': {'a0': 1},
+                        'ops': w_ops})
+    return [{'doc': [setup]}, {'doc': writers}]
 
 
 def op_count(batch):

@@ -4,25 +4,38 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
-port's C++ host runtime and both CUDA kernels from this checkout, then:
+port's C++ host runtime and its three CUDA kernels from this checkout
+(registers K1, dominance K2, members K3), then:
 
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
      `apply_batch_bytes` on an `automerge_tpu_torch` pool on the card,
      and the same payload on a CPU pool (the plain PyTorch versions):
      the patch bytes must be equal, no register row may take the C++
-     oracle, and both kernels must have launched;
+     oracle, and K1 and K2 must have launched;
   2. applies the map-only batch (bench config 4: 1024 Table docs) the
-     same way: the register kernel must have launched;
+     same way: K1 must have launched;
   3. loads v1 checkpoints saved by the CPU pool into a card pool as one
      batched replay: every doc's patch must equal the CPU pool's;
-  4. holds each kernel against its plain PyTorch version on the card,
+  4. applies the 64-replica catch-up backlog (bench config 5: 8 docs x
+     64 replicas x 13 changes x 15 ops, 99,840 ops, every register group
+     wider than the member window) as ONE batch: K3 must have launched
+     for the base window and at least one escalation tier, no row may
+     take the oracle, and the bytes must equal a CPU pool's;
+  5. applies one hot map key beside a list object with 40, 200 and 300
+     concurrent writers: the first two climb to tiers 64 and 256 with no
+     oracle row (K3 and K2 launch), the third is over the scratch budget
+     and all 300 rows take the oracle, as in the JAX package; the bytes
+     must equal a CPU pool's in each case;
+  6. holds each kernel against its plain PyTorch version on the card,
      bit-equal (integer outputs, tolerance 0), at the inputs the main
-     path gave it, at random shapes and at the edges of each design
+     paths gave it, at random shapes and at the edges of each design
      (register groups of exactly W and W + 1 rows across tile edges;
      elementless dominance ops at chunk edges, objects past the shared-
-     memory budget, one 100,000-element list), and times kernel and
-     plain version with CUDA events.
+     memory budget, one 100,000-element list; member windows at every
+     W from 8 to 1024, all empty, full of concurrent members, same-actor
+     same-seq duplicates, deletes winning, one actor), and times kernel
+     and plain version with CUDA events beside each call's bound.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -111,6 +124,30 @@ def dominance_launcher(torch, _build, dominance_kernel, args, chunk):
 
     def launch(keep=(ins, index, scratch)):
         _build.check(lib.amtpu_torch_dominance(*ptrs, *extra), 'dominance')
+    return launch
+
+
+def members_launcher(torch, _build, args, window, want_vb):
+    """The member kernel's C entry point alone, on outputs allocated once
+    (args as `resolve_registers_members`: time, actor, seq, mem_idx,
+    is_del, clock_table, clock_idx)."""
+    time_, actor, seq, mem, is_del, table, cidx = [a.contiguous()
+                                                  for a in args]
+    T = time_.numel()
+    dev = time_.device
+    outs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
+        ((T,), torch.int32), ((T, window), torch.int32),
+        ((T,), torch.int32), ((T,), torch.bool), ((T,), torch.bool),
+        ((T,), torch.int32))]
+    lib = _build.kernel('members')
+    ins = [time_, actor, seq, cidx, is_del, mem, table]
+    ptrs = [t.data_ptr() for t in ins] + [o.data_ptr() for o in outs]
+    if not want_vb:
+        ptrs[10] = None
+    extra = (T, window, table.shape[1], _build.stream_of(time_))
+
+    def launch(keep=(ins, outs)):
+        _build.check(lib.amtpu_torch_members(*ptrs, *extra), 'members')
     return launch
 
 
@@ -224,6 +261,31 @@ def dominance_bound(args, chunk):
         else 'operations'
 
 
+def members_bound(torch, args, window, alive_after, want_vb):
+    """Bytes: the [T, W] member matrix, the five columns, the clock-table
+    rows clock_idx references and the outputs (winner, alive_after,
+    packed, the [T, W] conflicts, overflow and, when asked for,
+    visible_before), each once.  Operations, counted from this call's
+    data: per row, one supersession test per unordered pair of valid
+    members (only the later of two can supersede the earlier: two clock
+    compares, the concurrency and, and the or into the flag -- 4), and
+    one ordering step per ordered pair of alive members (the actor
+    compare, the tie compare on time and the add -- 3)."""
+    mem, table, cidx = args[3], args[5], args[6]
+    T = mem.shape[0]
+    rows = int(torch.unique(cidx).numel())
+    read = T * window * 4 + T * (4 * 4 + 1) + rows * table.shape[1] * 4
+    written = T * (3 * 4 + 4 * window + 1 + (1 if want_vb else 0))
+    n_valid = 1 + (mem >= 0).sum(1).long()
+    n_alive = alive_after.long()
+    ops = 4 * int((n_valid * (n_valid - 1) // 2).sum()) + \
+        3 * int((n_alive * (n_alive - 1)).sum())
+    t_bytes = (read + written) / H100_BYTES_PER_S
+    t_ops = ops / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
 # -- each kernel against its plain version on the card ---------------------
 
 def check_registers(torch, card, label, args, window):
@@ -256,11 +318,67 @@ def check_dominance(torch, card, label, args, chunk=64):
         if ov.any() else 0
     ms = device_ms(torch, dominance_launcher(torch, _build, dominance_kernel,
                                              args, chunk))
-    log('dominance %s: mismatches %d (max count %d), kernel %.4f ms '
-        'on %s' % (label, bad, int(want.max()), ms, card))
+    bound, by = dominance_bound(args, chunk)
+    log('dominance %s: mismatches %d (max count %d), kernel %.4f ms, '
+        'bound %.3g ms (%s) on %s' % (label, bad, int(want.max()), ms,
+                                      bound, by, card))
     if bad:
         raise AssertionError('dominance %s: %d mismatches' % (label, bad))
     return err, ms
+
+
+def check_members(torch, card, label, args, window, want_vb=True):
+    """Bit-equality of the member kernel with its plain version, and the
+    kernel's own time; returns (max abs error, ms, bound ms, bound by)."""
+    from automerge_tpu_torch.ops import _build, members_kernel
+    from automerge_tpu_torch.ops import registers as R
+    kw = dict(window=window, want_visible_before=want_vb)
+    got = members_kernel.resolve_registers_members_cuda(*args, **kw)
+    want = R.resolve_registers_members(*args, **kw)
+    if set(got) != set(want):
+        raise AssertionError('members %s: outputs %s, plain %s'
+                             % (label, sorted(got), sorted(want)))
+    bad = sum(int((got[k] != want[k]).sum()) for k in want)
+    err = max(int((got[k].long() - want[k].long()).abs().max())
+              if want[k].numel() else 0 for k in want)
+    ms = device_ms(torch, members_launcher(torch, _build, args, window,
+                                           want_vb))
+    bound, by = members_bound(torch, args, window, want['alive_after'],
+                              want_vb)
+    log('members %s: mismatches %d (max alive %d), kernel %.4f ms, bound '
+        '%.3g ms (%s) on %s' % (label, bad, int(want['alive_after'].max())
+                                if want['alive_after'].numel() else 0, ms,
+                                bound, by, card))
+    if bad:
+        raise AssertionError('members %s: %d mismatches' % (label, bad))
+    return err, ms, bound, by
+
+
+def member_cases(torch, np, card):
+    """The member kernel at every window it takes, random and edge
+    cases; returns the largest error (0: bit-equal)."""
+    from automerge_tpu_torch.ops.members_kernel import KERNEL_WINDOWS
+    from torch_member_cases import members_case, members_edge_cases
+    dev = torch.device('cuda')
+    rs = np.random.RandomState(2025)
+
+    def on_card(case):
+        return [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+
+    err = 0
+    for i, W in enumerate(KERNEL_WINDOWS):
+        T = max(128, (1 << 17) // W)
+        for A in (8, 64):
+            e = check_members(torch, card, 'W=%d T=%d A=%d' % (W, T, A),
+                              on_card(members_case(rs, T, A, W)), W,
+                              want_vb=(i + A) % 2 == 0)[0]
+            err = max(err, e)
+        for label, case in members_edge_cases(rs, W):
+            for want_vb in (True, False):
+                e = check_members(torch, card, 'W=%d %s' % (W, label),
+                                  on_card(case), W, want_vb)[0]
+                err = max(err, e)
+    return err
 
 
 def kernel_cases(torch, np, card):
@@ -330,6 +448,9 @@ def main():
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    # the member kernel's random and edge-case inputs, shared with the
+    # CPU tests
+    sys.path.insert(1, os.path.join(root, 'tests'))
     try:
         import automerge_tpu_torch  # noqa: F401
     except ImportError:
@@ -357,6 +478,7 @@ def run(torch):
     from automerge_tpu_torch import trace, workloads
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
+    from automerge_tpu_torch.ops import members_kernel
     from automerge_tpu_torch.ops import registers as R
     from automerge_tpu_torch.ops import registers_kernel
 
@@ -376,7 +498,7 @@ def run(torch):
         ', '.join(os.path.basename(p) for p in kern_paths.values()), card))
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
-    captured = {'registers': [], 'dominance': []}
+    captured = {'registers': [], 'dominance': [], 'members': []}
     originals = []
     current = {'path': 'warm-up'}
 
@@ -392,14 +514,18 @@ def run(torch):
 
     capture(registers_kernel, 'resolve_registers_cuda', 'registers')
     capture(dominance_kernel, 'dominance_grouped_cuda', 'dominance')
+    capture(members_kernel, 'resolve_registers_members_cuda', 'members')
 
     K1, K2 = registers_kernel.LAUNCH_METRIC, dominance_kernel.LAUNCH_METRIC
-    launches = {K1: 0, K2: 0}
-    by_path = {K1: {}, K2: {}}
+    K3 = members_kernel.LAUNCH_METRIC
+    launches = {K1: 0, K2: 0, K3: 0}
+    by_path = {K1: {}, K2: {}, K3: {}}
 
-    def drive(label, fn, need):
+    def drive(label, fn, need, oracle=0):
         """Runs one main path with the counts zeroed just before and read
-        just after; fails if a kernel it needs never launched."""
+        just after; fails if a kernel it needs never launched or if the
+        C++ oracle resolved other than `oracle` register rows.  Returns
+        (result, wall s, metrics)."""
         torch.cuda.synchronize()
         current['path'] = label
         trace.reset()
@@ -409,14 +535,16 @@ def run(torch):
         wall = time.perf_counter() - t
         snap = trace.snapshot()
         m = snap['metrics']
-        got = {k: int(m.get(k, 0)) for k in (K1, K2)}
+        got = {k: int(m.get(k, 0)) for k in (K1, K2, K3)}
         for k in need:
             if got[k] == 0:
                 raise AssertionError('%s: kernel %s never launched' %
                                      (label, k))
-        if m.get('fallback.oracle', 0):
-            raise AssertionError('%s: %d register rows took the C++ oracle'
-                                 % (label, m['fallback.oracle']))
+        if m.get('fallback.oracle', 0) != oracle:
+            raise AssertionError('%s: %d register rows took the C++ oracle, '
+                                 'expected %d' % (
+                                     label, m.get('fallback.oracle', 0),
+                                     oracle))
         for k in got:
             launches[k] += got[k]
             by_path[k][label] = got[k]
@@ -424,12 +552,17 @@ def run(torch):
             label, wall, got, {k: round(v, 4)
                                for k, v in sorted(snap['spans'].items())},
             card))
-        return out, wall
+        return out, wall, m
 
-    # warm-up: CUDA context, kernel modules, allocator (a separate pool)
-    warm = workloads.build_config_3(random.Random(1), n_docs=64)
-    NativeDocPool().apply_batch_bytes(msgpack.packb(
-        {str(k): v for k, v in warm.items()}, use_bin_type=True))
+    def packed(batch):
+        return msgpack.packb({str(k): v for k, v in batch.items()},
+                             use_bin_type=True)
+
+    # warm-up: CUDA context, kernel modules, allocator (separate pools)
+    NativeDocPool().apply_batch_bytes(packed(workloads.build_config_3(
+        random.Random(1), n_docs=64)))
+    NativeDocPool().apply_batch_bytes(packed(workloads.build_config_5(
+        random.Random(1), n_docs=1, n_changes=2)))
     torch.cuda.synchronize()
     for calls in captured.values():
         calls.clear()
@@ -440,7 +573,7 @@ def run(torch):
     payload3 = msgpack.packb({str(k): v for k, v in batch3.items()},
                              use_bin_type=True)
     pool3 = NativeDocPool()
-    out_gpu, wall3 = drive('config3 gpu', lambda: pool3.apply_batch_bytes(
+    out_gpu, wall3, _ = drive('config3 gpu', lambda: pool3.apply_batch_bytes(
         payload3), need=(K1, K2))
     cpu3 = NativeDocPool(device='cpu')
     t = time.perf_counter()
@@ -463,7 +596,7 @@ def run(torch):
     payload4 = msgpack.packb({str(k): v for k, v in batch4.items()},
                              use_bin_type=True)
     pool4 = NativeDocPool()
-    out_gpu4, wall4 = drive('config4 gpu', lambda: pool4.apply_batch_bytes(
+    out_gpu4, wall4, _ = drive('config4 gpu', lambda: pool4.apply_batch_bytes(
         payload4), need=(K1,))
     if out_gpu4 != NativeDocPool(device='cpu').apply_batch_bytes(payload4):
         raise AssertionError('config4: GPU and CPU patch bytes differ')
@@ -480,14 +613,64 @@ def run(torch):
             raise AssertionError('load: doc %s patch differs' % d)
     log('load: %d v1 checkpoints replayed, patches equal' % len(docs))
 
-    # -- phase 4: kernels against their plain versions on the card -------
+    # -- phase 4: config 5, the 64-replica catch-up backlog --------------
+    batch5 = workloads.build_config_5(random.Random(7))
+    n_ops5 = workloads.op_count(batch5)
+    payload5 = packed(batch5)
+    pool5 = NativeDocPool()
+    out_gpu5, wall5, m5 = drive('config5 gpu', lambda: pool5
+                                .apply_batch_bytes(payload5), need=(K3,))
+    if m5.get(K3, 0) < 2 or not any(k.startswith('fallback.escalated.w')
+                                    for k in m5):
+        raise AssertionError('config5: K3 ran %d times, tiers %s'
+                             % (m5.get(K3, 0), m5))
+    t = time.perf_counter()
+    out_cpu5 = NativeDocPool(device='cpu').apply_batch_bytes(payload5)
+    log('config5 cpu (plain versions): %.3f s (host CPU, beside %s)'
+        % (time.perf_counter() - t, card))
+    if out_gpu5 != out_cpu5:
+        raise AssertionError('config5: GPU and CPU patch bytes differ')
+    patches = msgpack.unpackb(out_gpu5, raw=False)
+    if len(patches) != len(batch5) or any(
+            len(p['clock']) != 64 or not p['diffs'] for p in patches.values()):
+        raise AssertionError('config5: malformed patches')
+    log('config5: %d docs, %d ops, patch bytes equal (%d B); %d K3 launches, '
+        'tiers %s; %.0f ops/s on %s' % (
+            len(patches), n_ops5, len(out_gpu5), m5[K3],
+            {k: v for k, v in sorted(m5.items())
+             if k.startswith('fallback.')}, n_ops5 / wall5, card))
+
+    # -- phase 5: one hot key beside a list, three widths ----------------
+    for n_writers, tier, oracle in ((40, 64, 0), (200, 256, 0),
+                                    (300, None, 300)):
+        payloads = [packed(b) for b in workloads.hot_key_batch(n_writers)]
+        pool_h = NativeDocPool()
+        outs, _, mh = drive('hot key %d gpu' % n_writers, lambda: [
+            pool_h.apply_batch_bytes(p) for p in payloads], need=(K2, K3),
+            oracle=oracle)
+        tiers = {k: v for k, v in mh.items()
+                 if k.startswith('fallback.escalated.w')}
+        want = {} if tier is None else {'fallback.escalated.w%d' % tier:
+                                        n_writers}
+        if tiers != want:
+            raise AssertionError('hot key %d: tiers %s, expected %s'
+                                 % (n_writers, tiers, want))
+        cpu_h = NativeDocPool(device='cpu')
+        if outs != [cpu_h.apply_batch_bytes(p) for p in payloads]:
+            raise AssertionError('hot key %d: GPU and CPU patch bytes '
+                                 'differ' % n_writers)
+        log('hot key %d writers: tiers %s, oracle rows %d, patch bytes '
+            'equal' % (n_writers, tiers, oracle))
+
+    # -- phase 6: kernels against their plain versions on the card -------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
     rows = {}
     err1, err2 = kernel_cases(torch, np, card)
+    err3 = member_cases(torch, np, card)
 
-    # at the main path's own inputs (every call of the three driven
-    # paths): kernel, wrapper and plain times.  A row's `launches` sums
+    # at the main paths' own inputs (every call of the driven paths):
+    # kernel, wrapper and plain times.  A row's `launches` sums
     # the driven paths (`launches_by_path` splits it); its times and
     # shape are those of the largest call, made on `timed_path`
     for path, args, kw in captured['registers']:
@@ -502,7 +685,7 @@ def run(torch):
             *args, window=window), reps=3, rounds=3)
         bound, by = registers_bound(torch, args, window)
         log('registers %s T=%d W=%d: kernel %.4f ms, wrapper %.4f ms, '
-            'plain %.4f ms, bound %.4f ms (%s) on %s' % (
+            'plain %.4f ms, bound %.3g ms (%s) on %s' % (
                 path, T, window, ms, wrapper_ms, plain_ms, bound, by, card))
         if 'registers' not in rows or T * window > rows['registers'][0]:
             rows['registers'] = (T * window, {
@@ -528,7 +711,7 @@ def run(torch):
             *args, chunk=chunk), reps=3, rounds=3)
         bound, by = dominance_bound(args, chunk)
         log('dominance %s O=%d L=%d T=%d: kernel %.4f ms, wrapper '
-            '%.4f ms, plain %.4f ms, bound %.4f ms (%s) on %s' % (
+            '%.4f ms, plain %.4f ms, bound %.3g ms (%s) on %s' % (
                 path, O, L, T, ms, wrapper_ms, plain_ms, bound, by, card))
         if 'dominance' not in rows or O * L * T > rows['dominance'][0]:
             rows['dominance'] = (O * L * T, {
@@ -540,9 +723,49 @@ def run(torch):
                 'bound_ms': bound, 'bound_by': by, 'library_ms': None,
                 'wrapper_ms': wrapper_ms,
                 'shape': 'O=%d L=%d T=%d chunk=%d' % (O, L, T, chunk)})
+    path_ms = {}
+    for path, args, kw in captured['members']:
+        window = kw.get('window', R.WINDOW)
+        want_vb = kw.get('want_visible_before', True)
+        T = args[0].numel()
+        e, ms, bound, by = check_members(
+            torch, card, 'main path %s T=%d W=%d' % (path, T, window), args,
+            window, want_vb)
+        err3 = max(err3, e)
+        wrapper_ms = device_ms(torch, lambda: members_kernel
+                               .resolve_registers_members_cuda(
+                                   *args, window=window,
+                                   want_visible_before=want_vb))
+        plain_ms = device_ms(torch, lambda: R.resolve_registers_members(
+            *args, window=window, want_visible_before=want_vb),
+            reps=2, rounds=3)
+        log('members %s T=%d W=%d: kernel %.4f ms, wrapper %.4f ms, plain '
+            '%.4f ms, bound %.3g ms (%s) on %s' % (
+                path, T, window, ms, wrapper_ms, plain_ms, bound, by, card))
+        tot = path_ms.setdefault(path, [0.0, 0.0, 0.0])
+        tot[0] += ms
+        tot[1] += bound
+        tot[2] += plain_ms
+        pairs = T * (window + 1) ** 2
+        if 'members' not in rows or pairs > rows['members'][0]:
+            rows['members'] = (pairs, {
+                'name': 'members', 'route': 'cuda',
+                'source': 'automerge_tpu_torch/csrc/members.cu',
+                'replaces': 'automerge_tpu/ops/registers.py:126 (XLA, no '
+                            'Pallas kernel)',
+                'launches': launches[K3], 'launches_by_path': by_path[K3],
+                'timed_path': path, 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': bound, 'bound_by': by, 'library_ms': None,
+                'wrapper_ms': wrapper_ms, 'shape': 'T=%d W=%d A=%d' % (
+                    T, window, args[5].shape[1])})
+    for path, (ms, bound, plain_ms) in sorted(path_ms.items()):
+        log('members %s, all calls: kernel %.4f ms, bound %.3g ms, plain '
+            '%.4f ms on %s' % (path, ms, bound, plain_ms, card))
+    rows['members'][1]['path_ms'] = {p: v[0] for p, v in path_ms.items()}
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
-    return [rows['registers'][1], rows['dominance'][1]]
+    rows['members'][1]['max_abs_err'] = err3
+    return [rows['registers'][1], rows['dominance'][1], rows['members'][1]]
 
 
 if __name__ == '__main__':

@@ -1,6 +1,7 @@
-"""automerge_tpu_torch stands alone: no module of the package and no line
-of chip_smoke.py imports JAX or the JAX package, and the pool's default
-device is CUDA, with no silent fallback to the CPU."""
+"""automerge_tpu_torch stands alone: no module of the package, no line
+of chip_smoke.py and nothing of the test helper it imports pulls in JAX
+or the JAX package, and the pool's default device is CUDA, with no
+silent fallback to the CPU."""
 
 import ast
 import glob
@@ -14,7 +15,8 @@ from automerge_tpu_torch.native import NativeDocPool
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, 'automerge_tpu_torch', '**',
                                       '*.py'), recursive=True)) + \
-    [os.path.join(ROOT, 'chip_smoke.py')]
+    [os.path.join(ROOT, 'chip_smoke.py'),
+     os.path.join(ROOT, 'tests', 'torch_member_cases.py')]
 
 
 def _forbidden(name):

@@ -1,14 +1,17 @@
 """The port's pool (automerge_tpu_torch.native.NativeDocPool on the CPU,
 i.e. the plain version of every kernel) against automerge_tpu's
-NativeDocPool on its kernel path.  The patch bytes must be identical.
+NativeDocPool on its kernel path.  The patch bytes must be identical,
+and so must the rows each pool escalates per tier and sends to the C++
+oracle (`fallback.escalated.w*`, `fallback.oracle`).
 
-Both pools get the JAX package's kernel-path settings: no full host path
-and no host dominance (the port has neither), no escalation ladder (the
-port routes overflowed registers to the C++ oracle, as the JAX pool does
-under AMTPU_ESCALATE=0) and no resident arena (the port declines it).
-The resident clock table stays on.  The C++ knobs latch at each
-library's first batch; the port and the JAX package load separate
-copies of the library.
+Both pools get the JAX package's accelerator settings: no full host path
+and no host dominance (the port has neither), the escalation ladder on
+(AMTPU_ESCALATE=1, its default), no host-register shortcut
+(AMTPU_HOST_REG=0: the JAX pool takes it only on its CPU backend, so
+map-only member batches stay on its kernel path as on an accelerator)
+and no resident arena (the port declines it).  The resident clock table
+stays on.  The C++ knobs latch at each library's first batch; the port
+and the JAX package load separate copies of the library.
 """
 
 import ctypes
@@ -22,7 +25,7 @@ import pytest
 
 from automerge_tpu import trace as jax_trace
 from automerge_tpu.native import NativeDocPool as JaxPool
-from automerge_tpu_torch import trace, workloads
+from automerge_tpu_torch import native, trace, workloads
 from automerge_tpu_torch.native import NativeDocPool, _lib, live_batch_handles
 from automerge_tpu_torch.ops import registers as R
 from automerge_tpu_torch.ops import registers_kernel
@@ -37,9 +40,25 @@ with open(CORPUS) as f:
 @pytest.fixture(autouse=True)
 def kernel_path_env(monkeypatch):
     for k, v in (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
-                 ('AMTPU_ESCALATE', '0'), ('AMTPU_RESIDENT', '0'),
-                 ('AMTPU_RESIDENT_CLK', '1')):
+                 ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
+                 ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1')):
         monkeypatch.setenv(k, v)
+    trace.reset()
+    jax_trace.metrics_reset()
+
+
+def _fallback(metrics):
+    """The oracle and per-tier escalation counts of a metrics table."""
+    return {k: int(v) for k, v in metrics.items()
+            if k == 'fallback.oracle' or k.startswith('fallback.escalated.')}
+
+
+def _assert_same_fallback():
+    """Both pools escalated the same rows per tier and sent the same
+    rows to the oracle (counted since the fixture's reset)."""
+    got = _fallback(trace.metrics())
+    assert got == _fallback(jax_trace.metrics_snapshot())
+    return got
 
 
 def _payload(batch):
@@ -78,14 +97,29 @@ def test_golden_corpus_bytes_match(case):
     assert port.get_patch('d') == jax_pool.get_patch('d')
     assert port.get_clock('d') == jax_pool.get_clock('d')
     assert live_batch_handles() == 0
+    _assert_same_fallback()
 
 
 def test_config3_shape_bytes_match():
     _apply_both([workloads.build_config_3(random.Random(7), n_docs=32)])
+    _assert_same_fallback()
 
 
 def test_config4_shape_bytes_match():
     _apply_both([workloads.build_config_4(random.Random(7), n_docs=16)])
+    _assert_same_fallback()
+
+
+def test_config5_shape_bytes_match():
+    """Config 5 cut to 1 doc x 64 replicas x 2 changes: every register
+    group is wider than the member window and climbs the ladder (tiers 16
+    to 64) in both pools, with no oracle row."""
+    _apply_both([workloads.build_config_5(random.Random(7), n_docs=1,
+                                          n_changes=2)])
+    got = _assert_same_fallback()
+    assert got.get('fallback.escalated.w64', 0) > 0
+    assert 'fallback.oracle' not in got
+    assert trace.metrics().get('collect.packed_member_batches', 0) == 1
 
 
 def _patch_slices(buf):
@@ -104,21 +138,23 @@ def _patch_slices(buf):
 def test_member_layout_resolved_by_wide_sliding_window():
     """Config 4 at 128 docs: some row key is written 9 times, so C++
     builds member windows and flags the same-change duplicate assigns,
-    which the JAX pool hands to its C++ oracle.  The port covers the
-    widest group with a 16-wide sliding window instead: no oracle row and
-    the same patch bytes for every doc.  Emit lists the oracle-replayed
-    docs last, so only the order of docs in the result map differs."""
-    trace.reset()
-    jax_trace.metrics_reset()
+    which the JAX pool escalates to tier 16.  The port covers the widest
+    group with a 16-wide sliding window instead: no escalation, no oracle
+    row and the same patch bytes for every doc.  The JAX pool splits a
+    payload of 64 docs or more into waves (its wave pipelining, not
+    ported yet), which orders its result map by wave, so only the order
+    of docs in the map differs."""
     payload = _payload(workloads.build_config_4(random.Random(7),
                                                 n_docs=128))
     got = _patch_slices(NativeDocPool(device='cpu').apply_batch_bytes(
         payload))
     assert got == _patch_slices(JaxPool().apply_batch_bytes(payload))
-    assert jax_trace.metrics_snapshot().get('fallback.oracle', 0) > 0
+    jax_fallback = _fallback(jax_trace.metrics_snapshot())
+    assert jax_fallback.get('fallback.escalated.w16', 0) > 0
+    assert 'fallback.oracle' not in jax_fallback
     got = trace.metrics()
     assert got.get('registers.sliding_over_members', 0) == 1
-    assert got.get('fallback.oracle', 0) == 0
+    assert _fallback(got) == {}
 
 
 def test_incremental_batches_delta_upload_clock_rows():
@@ -136,32 +172,64 @@ def test_incremental_batches_delta_upload_clock_rows():
         assert port.get_patch(str(d)) == jax_pool.get_patch(str(d))
 
 
-def _hot_key_batch(n_writers=20):
-    """A map key with more concurrent writers than the widest sliding
-    window (member mode, host-flagged overflow) next to a list object, so
-    the batch keeps its list work and takes the layout-fallback path."""
-    setup = {'actor': 'a0', 'seq': 1, 'deps': {}, 'ops': [
-        {'action': 'makeList', 'obj': 'l'},
-        {'action': 'link', 'obj': ROOT_ID, 'key': 'list', 'value': 'l'},
-        {'action': 'ins', 'obj': 'l', 'key': '_head', 'elem': 1},
-        {'action': 'set', 'obj': 'l', 'key': 'a0:1', 'value': 'x'}]}
-    writers = [{'actor': 'w%02d' % a, 'seq': 1, 'deps': {'a0': 1}, 'ops': [
-        {'action': 'set', 'obj': ROOT_ID, 'key': 'hot', 'value': a},
-        {'action': 'ins', 'obj': 'l', 'key': 'a0:1', 'elem': 2 + a},
-        {'action': 'set', 'obj': 'l', 'key': 'w%02d:%d' % (a, 2 + a),
-         'value': 'v%d' % a}]} for a in range(n_writers)]
-    return [{'doc': [setup]}, {'doc': writers}]
-
-
 def test_hot_key_member_mode_oracle_matches():
-    trace.reset()
-    jax_trace.metrics_reset()
-    port, jax_pool = _apply_both(_hot_key_batch())
-    got = trace.metrics().get('fallback.oracle', 0)
-    assert got > 0
-    assert got == jax_trace.metrics_snapshot().get('fallback.oracle', 0)
+    """A map key with more concurrent writers than the widest sliding
+    window, next to a list object (so the batch keeps its list work and
+    takes the layout-fallback path): 20 writers climb to tier 32 in both
+    pools with no oracle row; 300 writers are over the scratch budget and
+    both pools send all 300 rows to the oracle."""
+    port, jax_pool = _apply_both(workloads.hot_key_batch(20))
+    assert _assert_same_fallback() == {'fallback.escalated.w32': 20}
     assert trace.metrics().get('fallback.layout_batches', 0) > 0
     assert port.get_patch('doc') == jax_pool.get_patch('doc')
+    trace.reset()
+    jax_trace.metrics_reset()
+    _apply_both(workloads.hot_key_batch(300))
+    assert _assert_same_fallback() == {'fallback.oracle': 300}
+
+
+@pytest.mark.parametrize('n_writers,with_list,want', [
+    (40, True, {'fallback.escalated.w64': 40}),
+    (40, False, {'fallback.escalated.w64': 40}),
+    (200, True, {'fallback.escalated.w256': 200}),
+    (300, True, {'fallback.oracle': 300})])
+def test_hot_key_tiers_match(n_writers, with_list, want):
+    """One hot key at the widths of the chip smoke: tiers 64 and 256
+    hold 40 and 200 writers; 300 writers go to the oracle."""
+    port, jax_pool = _apply_both(workloads.hot_key_batch(n_writers,
+                                                         with_list))
+    assert _assert_same_fallback() == want
+    assert port.get_patch('doc') == jax_pool.get_patch('doc')
+
+
+def test_oracle_docs_keep_their_place():
+    """A doc whose hot key goes to the oracle, between two docs the ladder
+    resolves: the result maps are equal whole, docs in payload order."""
+    small = workloads.hot_key_batch(20)
+    hot = workloads.hot_key_batch(300)
+    batches = [{'x': s['doc'], 'doc': h['doc'], 'y': s['doc']}
+               for s, h in zip(small, hot)]
+    port, jax_pool = _apply_both(batches[:1])
+    out = port.apply_batch_bytes(_payload(batches[1]))
+    assert out == jax_pool.apply_batch_bytes(_payload(batches[1]))
+    assert list(_patch_slices(out)) == ['x', 'doc', 'y']
+    assert _assert_same_fallback() == {'fallback.oracle': 300,
+                                       'fallback.escalated.w32': 40}
+
+
+def test_full_matrix_route_matches(monkeypatch):
+    """Batches of PACKED_ROWS_MAX rows or more read the unpacked register
+    outputs and merge the tiers on the host (`_escalate`); lowered so a
+    small batch takes that route, the port still matches the JAX pool on
+    its full-matrix route (AMTPU_PACKED_EPILOGUE=0)."""
+    monkeypatch.setattr(native, 'PACKED_ROWS_MAX', 0)
+    monkeypatch.setenv('AMTPU_PACKED_EPILOGUE', '0')
+    _apply_both(workloads.hot_key_batch(40) + workloads.hot_key_batch(300))
+    assert _assert_same_fallback() == {'fallback.escalated.w64': 40,
+                                       'fallback.oracle': 300}
+    got = trace.metrics()
+    assert got.get('collect.full_matrix_readback', 0) >= 2
+    assert got.get('collect.packed_member_batches', 0) == 0
 
 
 def _dup_assign_batch(n_writers, n_sets):
@@ -188,9 +256,10 @@ def _dup_assign_batch(n_writers, n_sets):
                          ids=['16-rows', '17-rows'])
 def test_widest_sliding_window_edge(monkeypatch, n_writers, n_sets):
     """A group of exactly SLIDING_MAX rows is resolved by a 16-wide
-    sliding window with no oracle row, where the JAX pool replays it in
-    the oracle; one row more keeps the member layout and both pools send
-    the same rows to the oracle.  The patch bytes agree either way."""
+    sliding window, where the JAX pool escalates it to tier 16; one row
+    more keeps the member layout and both pools escalate the same rows
+    to tier 16.  No row takes the oracle and the patch bytes agree
+    either way."""
     rows = 1 + n_writers * n_sets
     windows = []
     orig = registers_kernel.resolve_registers_auto
@@ -199,20 +268,18 @@ def test_widest_sliding_window_edge(monkeypatch, n_writers, n_sets):
         windows.append(kw['window'])
         return orig(*args, **kw)
     monkeypatch.setattr(registers_kernel, 'resolve_registers_auto', spy)
-    trace.reset()
-    jax_trace.metrics_reset()
     port, jax_pool = _apply_both([_dup_assign_batch(n_writers, n_sets)])
     assert port.get_patch('doc') == jax_pool.get_patch('doc')
-    jax_oracle = jax_trace.metrics_snapshot().get('fallback.oracle', 0)
+    jax_fallback = _fallback(jax_trace.metrics_snapshot())
     got = trace.metrics()
-    assert jax_oracle == rows
+    assert jax_fallback == {'fallback.escalated.w16': rows}
     if rows <= R.SLIDING_MAX:
         assert windows == [R.SLIDING_MAX]
         assert got.get('registers.sliding_over_members', 0) == 1
-        assert got.get('fallback.oracle', 0) == 0
+        assert _fallback(got) == {}
     else:
         assert windows == []
-        assert got.get('fallback.oracle', 0) == jax_oracle
+        assert _assert_same_fallback() == jax_fallback
 
 
 def test_jax_v1_checkpoint_loads_into_port(monkeypatch):
@@ -273,6 +340,54 @@ def test_device_inputs_never_alias_cxx_buffers(monkeypatch):
                                 shape=(n, ap))
     assert (pool._resclk.tab[:n, :ap].numpy() == cxx).all()
     assert not np.shares_memory(cxx, pool._resclk.tab.numpy())
+
+
+def test_escalation_layout_read_through_private_copies(monkeypatch):
+    """The C++ escalation layout (amtpu_esc_*) reaches the tiers through
+    private copies only, never through views of the batch's buffers."""
+    seen = []
+    orig = NativeDocPool._esc_layout_groups
+
+    def spy(L, bh):
+        groups = orig(L, bh)
+        dims = (ctypes.c_int64 * 3)()
+        L.amtpu_esc_dims(bh, dims)
+        _, n_rows, n_mem = [int(x) for x in dims]
+        cxx = [np.ctypeslib.as_array(L.amtpu_esc_rows(bh), shape=(n_rows,)),
+               np.ctypeslib.as_array(L.amtpu_esc_mem(bh), shape=(n_mem,)),
+               np.ctypeslib.as_array(L.amtpu_esc_mem_off(bh),
+                                     shape=(n_rows + 1,))]
+        for rows, lens, vals, _width in groups:
+            for arr in (rows, lens, vals):
+                assert not any(np.shares_memory(arr, c) for c in cxx)
+        seen.append(len(groups))
+        return groups
+    monkeypatch.setattr(NativeDocPool, '_esc_layout_groups',
+                        staticmethod(spy))
+    batches = workloads.hot_key_batch(40)
+    batches[1]['other'] = workloads.hot_key_batch(20)[1]['doc']
+    batches[0]['other'] = workloads.hot_key_batch(20)[0]['doc']
+    port = NativeDocPool(device='cpu')
+    for batch in batches:
+        port.apply_batch_bytes(_payload(batch))
+    assert seen == [2]
+
+
+def test_flagged_rows_without_layout_raise(monkeypatch):
+    """C++ builds an escalation layout whenever it flags a member row, so
+    flagged rows without one are a fault: the batch raises and rolls
+    back, and no row is resolved some other way."""
+    monkeypatch.setattr(NativeDocPool, '_esc_layout_groups',
+                        staticmethod(lambda L, bh: []))
+    port = NativeDocPool(device='cpu')
+    setup, writers = workloads.hot_key_batch(40)
+    port.apply_batch_bytes(_payload(setup))
+    with pytest.raises(AssertionError, match='escalation layout'):
+        port.apply_batch_bytes(_payload(writers))
+    assert live_batch_handles() == 0
+    fresh = NativeDocPool(device='cpu')
+    fresh.apply_batch_bytes(_payload(setup))
+    assert port.get_patch('doc') == fresh.get_patch('doc')
 
 
 def test_unpacked_outputs_match_the_packed_word():
