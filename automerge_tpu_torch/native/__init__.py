@@ -16,10 +16,16 @@ behind the caller's back.
 Per batch (`apply_batch_bytes`):
   phase a: C++ begin, private copies of the C++ columns uploaded to the
     device, one fused dispatch, the packed result copied into pinned
-    host memory behind a CUDA event;
+    host memory, and one CUDA event recorded after the last enqueue;
   phase b: wait for that event, C++ mid (fed the packed register words,
     the conflict rows that need them and the dominance indexes), C++
     emit -> patch bytes.
+A payload of PIPELINE_MIN_DOCS docs or more is split into PIPELINE_DEPTH
+doc-disjoint waves by the C++ FNV doc hash (`_apply_waves`, the JAX
+pool's wave pipelining): every wave runs phase a before any wave blocks,
+so wave k+1's C++ begin overlaps wave k's kernels; phase b drains the
+waves ready-first, and the result maps are concatenated in wave order,
+as the JAX pool returns them.
 Batches whose layout does not fit the fused dispatch (several dominance
 size classes, member-mode overflow, T >= 2^24) resolve registers and
 ranks first and run dominance after the mid phase, one dispatch per
@@ -35,6 +41,7 @@ and counted as `fallback.oracle`.
 
 import ctypes
 import threading
+import time
 
 import msgpack
 import numpy as np
@@ -45,7 +52,7 @@ from ..errors import AutomergeError, RangeError
 from ..ops import list_rank
 from ..ops import registers as register_ops
 from ..ops.dominance_kernel import dominance_grouped_auto
-from ..utils import doc_key, map_header
+from ..utils import doc_key, map_header, read_map_header
 from ._lib import lib, loaded, take_buf
 from .clock_cache import PoolClockCache
 
@@ -57,6 +64,12 @@ PACKED_ROWS_MAX = 1 << 24
 #: transfer, sliced on the host, once more than 1 / CONF_DENSE_THRESH of
 #: its rows need one; below that, as a row gather on the device
 CONF_DENSE_THRESH = 4
+#: waves a pipelined payload splits into (below 2: never split); the JAX
+#: pool's default AMTPU_PIPELINE_DEPTH
+PIPELINE_DEPTH = 2
+#: smallest doc count a payload is split at; the JAX pool's default
+#: AMTPU_PIPELINE_MIN_DOCS
+PIPELINE_MIN_DOCS = 64
 
 # ---------------------------------------------------------------------------
 # batch handles: every successful begin is paired with exactly one free
@@ -85,10 +98,13 @@ def live_batch_handles():
         return _live_batches
 
 
-def _rollback_batch(bh):
+def _rollback_batch(bh, exc=None):
     """Rolls a failed batch back to the pre-begin pool state; False when
-    emit had already run (the pool state is then suspect)."""
+    emit had already run: the pool state is then suspect, and `exc` is
+    marked ``amtpu_state_suspect`` so that no caller replays the batch."""
     if lib().amtpu_batch_rollback(bh) != 0:
+        if exc is not None:
+            exc.amtpu_state_suspect = True
         trace.metric('resilience.rollback_unavailable')
         return False
     trace.metric('resilience.rollback')
@@ -120,6 +136,71 @@ def _up(a):
 
 def _to_host(t):
     return np.ascontiguousarray(t.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# ready-first collect over begun batches (waves of one pool, or pools)
+# ---------------------------------------------------------------------------
+
+def _ctx_ready(ctx):
+    """True once every kernel and copy phase a enqueued for `ctx` has run
+    (its CUDA event); a CPU context is always ready."""
+    ev = ctx['event']
+    return ev is None or ev.query()
+
+
+def _run_phase_b_entry(key, pool, ctx, on_result=None, on_error=None):
+    """Phase b of one (key, pool, ctx) entry: rolls the batch back on
+    failure and always frees its handle.  Every device input is a private
+    copy, so the C++ batch may be freed while its kernels still run."""
+    try:
+        result = pool._phase_b(ctx)
+        if on_result is not None:
+            on_result(key, result)
+    except Exception as e:
+        _rollback_batch(ctx['bh'], e)
+        if on_error is None:
+            raise
+        on_error(key, e)
+    finally:
+        _free_batch(ctx['bh'])
+
+
+def _collect_ready_order(entries, on_result=None, on_error=None):
+    """Runs phase b over (key, pool, ctx) entries ready-first: each round
+    takes the first entry whose device work has finished, and blocks on
+    the oldest only when none has.  Every entry runs to completion
+    whatever failed before it (their begins have committed state); errors
+    go to `on_error(key, exc)`."""
+    pending = list(entries)
+    while pending:
+        pick = next((i for i, (_k, _p, ctx) in enumerate(pending)
+                     if _ctx_ready(ctx)), None)
+        if pick is None:
+            pick = 0
+            trace.metric('collect.wait_in_order')
+        elif pick > 0:
+            trace.metric('collect.ready_reorder')
+        key, pool, ctx = pending.pop(pick)
+        _run_phase_b_entry(key, pool, ctx, on_result, on_error)
+
+
+def apply_payloads_pipelined(pools_payloads):
+    """Applies (NativeDocPool, payload bytes) pairs with host/device
+    overlap: every pool's begin and dispatch run first (phase a), then
+    the results collect ready-first (phase b).  A pool may appear more
+    than once.  Pools that began still run to completion when a later one
+    fails; the first error is raised afterwards."""
+    ctxs = []
+    errors = []
+    for pool, payload in pools_payloads:
+        try:
+            ctxs.append((None, pool, pool._start(payload)))
+        except Exception as e:
+            errors.append(e)
+    _collect_ready_order(ctxs, on_error=lambda _k, e: errors.append(e))
+    if errors:
+        raise errors[0]
 
 
 class NativeDocPool:
@@ -162,13 +243,112 @@ class NativeDocPool:
 
     def apply_batch_bytes(self, payload):
         """msgpack {doc_id: [change...]} -> msgpack {doc_id: patch}."""
-        L = lib()
+        docs = 0
+        if isinstance(payload, (bytes, bytearray)):
+            try:
+                docs = read_map_header(payload)[0]
+            except (ValueError, IndexError):
+                pass    # malformed: C++ begin raises its typed error
+        if docs >= max(2, PIPELINE_MIN_DOCS) and PIPELINE_DEPTH >= 2:
+            try:
+                return self._apply_waves(payload, docs)
+            except Exception as e:
+                if getattr(e, 'amtpu_state_suspect', False):
+                    raise
+            # every wave rolled back before emit: the serial replay
+            # raises a multi-error payload's FIRST error in application
+            # order, whatever the waves' hash order
+            trace.metric('pipeline.serial_replay')
+        return self._run_batch(self._begin(payload))
+
+    def _begin(self, payload):
+        """C++ begin over msgpack bytes or a (ctypes pointer, length) pair
+        (a wave's buffer, passed without a copy: begin copies what it
+        keeps).  Returns the tracked batch handle."""
+        data, n = payload if isinstance(payload, tuple) else \
+            (payload, len(payload))
         with trace.span('host.begin'):
-            bh = L.amtpu_begin(self._pool, payload, len(payload))
+            bh = lib().amtpu_begin(self._pool, data, n)
         if not bh:
             _raise_last()
         _track_begin()
-        return self._run_batch(bh)
+        return bh
+
+    def _start(self, payload):
+        """Begin + phase a; a phase-a failure rolls the batch back and
+        frees it.  Returns the context phase b takes."""
+        bh = self._begin(payload)
+        try:
+            return self._phase_a(bh)
+        except Exception as e:
+            _rollback_batch(bh, e)
+            _free_batch(bh)
+            raise
+
+    def _apply_waves(self, payload, docs):
+        """The payload split into doc-disjoint waves (the C++ FNV doc
+        hash), every wave's begin and dispatch before any wave blocks,
+        phase b ready-first, the result maps concatenated in wave order.
+        Doc-disjointness makes the interleaved begins sound: begin's
+        journal and arenas are doc-scoped, and the pool's intern and
+        clock tables only grow (each wave's context holds the clock table
+        its kernels read, so a later wave's full upload cannot free it).
+
+        A phase-a error rolls every begun wave back in reverse begin
+        order: nothing has emitted, so the call stays atomic.  A phase-b
+        error lets the other waves finish, and the raised error is marked
+        ``amtpu_state_suspect`` when any wave committed."""
+        L = lib()
+        depth = min(PIPELINE_DEPTH, docs)
+        with trace.span('pipeline.split'):
+            sp = L.amtpu_shard_split(payload, len(payload), depth)
+            if not sp:
+                _raise_last()
+        try:
+            subs = []
+            for s in range(depth):
+                n = ctypes.c_int64()
+                ptr = L.amtpu_shard_buf(sp, s, ctypes.byref(n))
+                if n.value > 1:         # 1 byte: the empty map
+                    subs.append((ctypes.cast(ptr, ctypes.c_char_p), n.value))
+            ctxs = []
+            t_a0 = None
+            try:
+                for i, sub in enumerate(subs):
+                    ctxs.append((i, self, self._start(sub)))
+                    if i == 0:
+                        t_a0 = time.perf_counter()
+            except Exception as e:
+                for _i, _p, ctx in reversed(ctxs):
+                    _rollback_batch(ctx['bh'], e)
+                    _free_batch(ctx['bh'])
+                raise
+            if len(ctxs) > 1:
+                # begin + dispatch of the waves after the first: host work
+                # that ran while wave 0's kernels were in flight
+                trace.metric('collect.overlap_s', time.perf_counter() - t_a0)
+            trace.metric('pipeline.batches')
+            trace.metric('pipeline.waves', len(ctxs))
+            results = [None] * len(ctxs)
+            errors = []
+            _collect_ready_order(ctxs, on_result=results.__setitem__,
+                                 on_error=lambda i, e: errors.append(e))
+            if errors:
+                err = errors[0]
+                if any(r is not None for r in results) or any(
+                        getattr(e, 'amtpu_state_suspect', False)
+                        for e in errors):
+                    err.amtpu_state_suspect = True
+                raise err
+            total = 0
+            bodies = []
+            for r in results:
+                cnt, off = read_map_header(r)
+                total += cnt
+                bodies.append(memoryview(r)[off:])
+            return map_header(total) + b''.join(bodies)
+        finally:
+            L.amtpu_shard_free(sp)
 
     def apply_local_change(self, doc_id, request):
         """Applies one local change request (requestType change / undo /
@@ -185,13 +365,13 @@ class NativeDocPool:
         return msgpack.unpackb(out, raw=False, strict_map_key=False)[key]
 
     def _run_batch(self, bh):
-        """Phase a + b over a begun batch; rolls back on failure and
-        always frees the handle."""
+        """Phase a + b over a begun batch, unpipelined; rolls back on
+        failure and always frees the handle."""
         try:
             ctx = self._phase_a(bh)
             return self._phase_b(ctx)
-        except Exception:
-            _rollback_batch(bh)
+        except Exception as e:
+            _rollback_batch(bh, e)
             raise
         finally:
             _free_batch(bh)
@@ -199,13 +379,14 @@ class NativeDocPool:
     def _upload(self, view, dtype=None):
         """Private host copy of a C++ column, then the device upload: the
         C++ buffers never back a tensor (they are freed with the batch)."""
-        arr = np.array(view, dtype=dtype)
-        return torch.from_numpy(arr).to(self.device)
+        return register_ops.upload(np.array(view, dtype=dtype), self.device)
 
     def _phase_a(self, bh):
-        """Reads the batch dims and dispatches the device work."""
+        """Reads the batch dims and dispatches the device work; the
+        context's `event` is recorded after the last enqueue, whatever the
+        route (None on the CPU)."""
         L = lib()
-        ctx = {'bh': bh}
+        ctx = {'bh': bh, 'event': None}
         dims = (ctypes.c_int64 * self.N_DIMS)()
         L.amtpu_batch_dims(bh, dims)
         (T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp, use_members,
@@ -266,6 +447,9 @@ class NativeDocPool:
                 # and are collected in phase b
                 if hovf is not None and hovf.any():
                     ctx['esc'] = self._escalation_dispatch(L, ctx)
+        if self.device.type == 'cuda':
+            ctx['event'] = torch.cuda.Event()
+            ctx['event'].record()
         return ctx
 
     def _register_views(self, L, bh, Tp, Ap, CTp, ctab_dev=None):
@@ -293,16 +477,14 @@ class NativeDocPool:
         return cols
 
     def _fetch_async(self, ctx, t):
-        """Starts the device->host copy of `t` into pinned memory and
-        records the event phase b waits on."""
+        """Starts the device->host copy of `t` into pinned memory (phase
+        b reads it after the context's event)."""
         if self.device.type == 'cuda':
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            ctx.update(combo_host=host, combo_event=ev)
+            ctx['combo_host'] = host
         else:
-            ctx.update(combo_host=t, combo_event=None)
+            ctx['combo_host'] = t
 
     def _dispatch_fused(self, L, ctx, Tp, Ap, CTp, Lp, max_obj, n_blocks,
                         W, dLp, dTp):
@@ -350,8 +532,8 @@ class NativeDocPool:
                 if ctx['combo'] is None:
                     packed = dom_idx = np.zeros(0, np.int32)
                 else:
-                    if ctx['combo_event'] is not None:
-                        ctx['combo_event'].synchronize()
+                    if ctx['event'] is not None:
+                        ctx['event'].synchronize()
                     combo = ctx['combo_host'].numpy()
                     packed = np.ascontiguousarray(combo[:Tp])
                     dom_idx = np.ascontiguousarray(combo[Tp:])

@@ -68,6 +68,11 @@ _ABI = {
     'amtpu_get_clock': (_u8p, [_vp, _cp, _i64p]),
     'amtpu_save': (_u8p, [_vp, _cp, _i64p]),
     'amtpu_buf_free': (None, [_u8p]),
+    # doc-disjoint payload split by FNV-1a doc hash (the pool's waves):
+    # sub-payload buffers are owned by the split handle until its free
+    'amtpu_shard_split': (_vp, [_cp, _i64, _int]),
+    'amtpu_shard_buf': (_u8p, [_vp, _int, _i64p]),
+    'amtpu_shard_free': (None, [_vp]),
 }
 for _name in ('g', 't', 'a', 's', 'clocktab', 'clockidx', 'sort', 'obj',
               'par', 'ctr', 'act', 'linsort', 'memidx'):

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..ops import registers as register_ops
 
 
 def _bucket_pow2(n, floor):
@@ -70,7 +71,7 @@ class PoolClockCache:
             if n:
                 host[:n] = np.ctypeslib.as_array(L.amtpu_resclk_tab(pool),
                                                  shape=(n, ap))
-            self.tab = torch.from_numpy(host).to(self.device)
+            self.tab = register_ops.upload(host, self.device)
             self.cap = cap
             trace.metric('resident.batch_full_uploads')
         elif n > self.n:
@@ -78,9 +79,9 @@ class PoolClockCache:
                                         shape=(n, ap))
             rows = np.zeros((n - self.n, self.tab.shape[1]), np.int32)
             rows[:, :ap] = src[self.n:n]
-            rows = torch.from_numpy(rows)
             idx = torch.arange(self.n, n, device=self.device)
-            self.tab.index_copy_(0, idx, rows.to(self.device))
+            self.tab.index_copy_(0, idx, register_ops.upload(rows,
+                                                          self.device))
             trace.metric('resident.batch_delta_rows', n - self.n)
         else:
             trace.metric('resident.batch_noop')

@@ -379,20 +379,26 @@ def _dispatch_cost(n_rows, W):
     return _tier_of(n_rows) * (W + 1) * (W + 1) * 4
 
 
+def upload(host, device):
+    """Copies a private host array (a numpy array no one else holds) to
+    `device`.  Every private copy the pool makes of C++ state crosses to
+    the device here; to CUDA it is a synchronous pageable copy, so the
+    array may be overwritten as soon as this returns (`chip_smoke.py`'s
+    hostile-staging lane does so)."""
+    return torch.from_numpy(host).to(device)
+
+
 def _dispatch_members_tier(time, actor, seq, mem, is_del, clock_table,
                            clock_idx, window, want_visible_before=True):
     """One tier-chunk dispatch: private host arrays (fresh for every
-    chunk, never refilled) copied to the clock table's device, each a
-    synchronous pageable copy, then the member kernel, launched
-    asynchronously on the current stream."""
+    chunk, never refilled) uploaded to the clock table's device, then the
+    member kernel, launched asynchronously on the current stream."""
     from .members_kernel import resolve_registers_members_auto
     dev = clock_table.device
-
-    def up(a):
-        return torch.from_numpy(a).to(dev)
     return resolve_registers_members_auto(
-        up(time), up(actor), up(seq), up(mem), up(is_del), clock_table,
-        up(clock_idx), window=window,
+        upload(time, dev), upload(actor, dev), upload(seq, dev),
+        upload(mem, dev), upload(is_del, dev), clock_table,
+        upload(clock_idx, dev), window=window,
         want_visible_before=want_visible_before)
 
 

@@ -12,11 +12,17 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      `apply_batch_bytes` on an `automerge_tpu_torch` pool on the card,
      and the same payload on a CPU pool (the plain PyTorch versions):
      the patch bytes must be equal, no register row may take the C++
-     oracle, and K1 and K2 must have launched;
+     oracle, K1 and K2 must have launched, and the payload must have
+     gone through two waves (wave pipelining: `pipeline.waves` = 2);
+     then once more unpipelined (depth 1) on a fresh card pool: every
+     doc's patch must equal the pipelined run's;
   2. applies the map-only batch (bench config 4: 1024 Table docs) the
-     same way: K1 must have launched;
+     same way, in two waves: K1 must have launched;
   3. loads v1 checkpoints saved by the CPU pool into a card pool as one
-     batched replay: every doc's patch must equal the CPU pool's;
+     batched replay in two waves: every doc's patch must equal the CPU
+     pool's; then applies a pipelined batch of 256 docs with every
+     private host array overwritten as soon as its upload returned
+     (hostile staging): the bytes must still equal the CPU pool's;
   4. applies the 64-replica catch-up backlog (bench config 5: 8 docs x
      64 replicas x 13 changes x 15 ops, 99,840 ops, every register group
      wider than the member window) as ONE batch: K3 must have launched
@@ -34,8 +40,10 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      elementless dominance ops at chunk edges, objects past the shared-
      memory budget, one 100,000-element list; member windows at every
      W from 8 to 1024, all empty, full of concurrent members, same-actor
-     same-seq duplicates, deletes winning, one actor), and times kernel
-     and plain version with CUDA events beside each call's bound.
+     same-seq duplicates, deletes winning, one actor, tier chunks with
+     groups of 1, W, W + 1 and 71 rows, repeated members, indexes
+     clipped at T and a group too long for a block's span), and times
+     kernel and plain version with CUDA events beside each call's bound.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -437,6 +445,64 @@ def kernel_cases(torch, np, card):
     return err1, err2
 
 
+def patch_slices(buf):
+    """{doc key: raw patch bytes} of a batch result map."""
+    import msgpack
+    u = msgpack.Unpacker(None, max_buffer_size=0, raw=False)
+    u.feed(buf)
+    out = {}
+    for _ in range(u.read_map_header()):
+        key = u.unpack()
+        start = u.tell()
+        u.skip()
+        out[key] = buf[start:u.tell()]
+    return out
+
+
+def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
+    """A pipelined batch of 256 docs on the card (254 Text docs of config
+    3 and two cut config-5 docs, whose register groups climb the
+    escalation ladder) with every private host array (the pool's copies
+    of C++ columns, tier chunks and clock rows, all of which reach the
+    card through `ops.registers.upload`) overwritten with 0x5B bytes as
+    soon as its upload returned; the bytes must equal a CPU pool's.
+    Kernel launches here are not counted."""
+    import random as _random
+    from automerge_tpu_torch import trace
+    batch = workloads.build_config_3(_random.Random(5), n_docs=254)
+    for d, chs in workloads.build_config_5(_random.Random(5), n_docs=2,
+                                           n_changes=2).items():
+        batch['c5-%d' % d] = chs
+    payload = packed(batch)
+    orig = R.upload
+    n = [0]
+
+    def hostile(host, device):
+        out = orig(host, device)
+        if out.device.type == 'cuda':
+            host.view(np.uint8)[...] = 0x5B
+            n[0] += 1
+        return out
+    R.upload = hostile
+    try:
+        trace.reset()
+        got = NativeDocPool().apply_batch_bytes(payload)
+        torch.cuda.synchronize()
+        waves = trace.metrics().get('pipeline.waves', 0)
+    finally:
+        R.upload = orig
+    if got != NativeDocPool(device='cpu').apply_batch_bytes(payload):
+        raise AssertionError('hostile staging: GPU and CPU bytes differ')
+    tiers = sum(v for k, v in trace.metrics().items()
+                if k.startswith('fallback.escalated.w'))
+    if waves != 2 or n[0] == 0 or tiers == 0:
+        raise AssertionError('hostile staging: %d waves, %d arrays, %d tier '
+                             'rows' % (waves, n[0], tiers))
+    log('hostile staging: 256 docs in %d waves (%d tier rows), %d host '
+        'arrays overwritten after upload, bytes equal to the CPU pool on %s'
+        % (waves, tiers, n[0], card))
+
+
 def main():
     try:
         import torch
@@ -475,7 +541,7 @@ def run(torch):
     import msgpack
     import numpy as np
 
-    from automerge_tpu_torch import trace, workloads
+    from automerge_tpu_torch import native, trace, workloads
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
     from automerge_tpu_torch.ops import members_kernel
@@ -507,8 +573,9 @@ def run(torch):
         originals.append((mod, name, orig))
 
         def wrapper(*args, **kw):
-            captured[key].append((current['path'],
-                                  [a.clone() for a in args], dict(kw)))
+            if current['path'] is not None:
+                captured[key].append((current['path'],
+                                      [a.clone() for a in args], dict(kw)))
             return orig(*args, **kw)
         setattr(mod, name, wrapper)
 
@@ -521,11 +588,12 @@ def run(torch):
     launches = {K1: 0, K2: 0, K3: 0}
     by_path = {K1: {}, K2: {}, K3: {}}
 
-    def drive(label, fn, need, oracle=0):
+    def drive(label, fn, need, oracle=0, waves=0):
         """Runs one main path with the counts zeroed just before and read
-        just after; fails if a kernel it needs never launched or if the
-        C++ oracle resolved other than `oracle` register rows.  Returns
-        (result, wall s, metrics)."""
+        just after; fails if a kernel it needs never launched, if the
+        C++ oracle resolved other than `oracle` register rows or if the
+        payload went through other than `waves` waves (0: unsplit).
+        Returns (result, wall s, metrics)."""
         torch.cuda.synchronize()
         current['path'] = label
         trace.reset()
@@ -533,6 +601,7 @@ def run(torch):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        current['path'] = None
         snap = trace.snapshot()
         m = snap['metrics']
         got = {k: int(m.get(k, 0)) for k in (K1, K2, K3)}
@@ -545,13 +614,18 @@ def run(torch):
                                  'expected %d' % (
                                      label, m.get('fallback.oracle', 0),
                                      oracle))
+        if m.get('pipeline.waves', 0) != waves:
+            raise AssertionError('%s: %d waves, expected %d' % (
+                label, m.get('pipeline.waves', 0), waves))
         for k in got:
             launches[k] += got[k]
             by_path[k][label] = got[k]
-        log('%s: %.3f s wall, launches %s, spans %s on %s' % (
+        log('%s: %.3f s wall, launches %s, spans %s, waves %s on %s' % (
             label, wall, got, {k: round(v, 4)
                                for k, v in sorted(snap['spans'].items())},
-            card))
+            {k: m[k] for k in ('pipeline.waves', 'collect.overlap_s',
+                               'collect.ready_reorder',
+                               'collect.wait_in_order') if k in m}, card))
         return out, wall, m
 
     def packed(batch):
@@ -573,8 +647,26 @@ def run(torch):
     payload3 = msgpack.packb({str(k): v for k, v in batch3.items()},
                              use_bin_type=True)
     pool3 = NativeDocPool()
-    out_gpu, wall3, _ = drive('config3 gpu', lambda: pool3.apply_batch_bytes(
-        payload3), need=(K1, K2))
+    # whether each wave's device work had finished when the next wave's
+    # dispatch began (after its C++ begin): only unfinished work can hold
+    # up the next wave's synchronous pageable uploads
+    events, done_at_next = [], []
+    phase_a = NativeDocPool._phase_a
+
+    def phase_a_spy(self, bh):
+        done_at_next.extend(e.query() for e in events[-1:])
+        ctx = phase_a(self, bh)
+        events.append(ctx['event'])
+        return ctx
+    NativeDocPool._phase_a = phase_a_spy
+    try:
+        out_gpu, wall3, _ = drive('config3 gpu', lambda: pool3
+                                  .apply_batch_bytes(payload3),
+                                  need=(K1, K2), waves=2)
+    finally:
+        NativeDocPool._phase_a = phase_a
+    log('config3: wave 0 device work finished before wave 1 dispatched: %s '
+        'on %s' % (done_at_next, card))
     cpu3 = NativeDocPool(device='cpu')
     t = time.perf_counter()
     out_cpu = cpu3.apply_batch_bytes(payload3)
@@ -589,6 +681,17 @@ def run(torch):
         raise AssertionError('config3: malformed patches')
     log('config3: %d docs, %d ops, patch bytes equal (%d B); %.0f ops/s on '
         '%s' % (len(patches), n_ops3, len(out_gpu), n_ops3 / wall3, card))
+    native.PIPELINE_DEPTH = 1
+    try:
+        pool3u = NativeDocPool()
+        out_u, wall3u, _ = drive('config3 gpu depth 1', lambda: pool3u
+                                 .apply_batch_bytes(payload3), need=(K1, K2))
+    finally:
+        native.PIPELINE_DEPTH = 2
+    if patch_slices(out_u) != patch_slices(out_gpu):
+        raise AssertionError('config3: depth 1 and depth 2 patches differ')
+    log('config3: per-doc patches of depth 1 equal depth 2; wall %.3f s '
+        'at depth 2, %.3f s at depth 1 on %s' % (wall3, wall3u, card))
 
     # -- phase 2: config 4, the map-only batch ---------------------------
     batch4 = workloads.build_config_4(random.Random(7))
@@ -597,7 +700,7 @@ def run(torch):
                              use_bin_type=True)
     pool4 = NativeDocPool()
     out_gpu4, wall4, _ = drive('config4 gpu', lambda: pool4.apply_batch_bytes(
-        payload4), need=(K1,))
+        payload4), need=(K1,), waves=2)
     if out_gpu4 != NativeDocPool(device='cpu').apply_batch_bytes(payload4):
         raise AssertionError('config4: GPU and CPU patch bytes differ')
     log('config4: %d docs, %d ops, patch bytes equal; %.0f ops/s on %s'
@@ -607,11 +710,13 @@ def run(torch):
     docs = [str(d) for d in range(512)]
     blobs = {d: cpu3.save(d) for d in docs}
     pool_l = NativeDocPool()
-    drive('load gpu', lambda: pool_l.load_batch(blobs), need=(K1, K2))
+    drive('load gpu', lambda: pool_l.load_batch(blobs), need=(K1, K2),
+          waves=2)
     for d in docs:
         if pool_l.get_patch(d) != cpu3.get_patch(d):
             raise AssertionError('load: doc %s patch differs' % d)
     log('load: %d v1 checkpoints replayed, patches equal' % len(docs))
+    hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed)
 
     # -- phase 4: config 5, the 64-replica catch-up backlog --------------
     batch5 = workloads.build_config_5(random.Random(7))

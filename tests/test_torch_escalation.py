@@ -30,7 +30,8 @@ from automerge_tpu_torch.ops.members_kernel import (
     KERNEL_WINDOWS, resolve_registers_members_auto,
     resolve_registers_members_cuda)
 from automerge_tpu_torch.utils import ROOT_ID
-from torch_member_cases import members_case, members_edge_cases
+from torch_member_cases import (
+    members_case, members_chunk_case, members_edge_cases)
 
 KEYS = ('winner', 'alive_after', 'conflicts', 'visible_before', 'overflow',
         'packed')
@@ -151,8 +152,10 @@ def test_members_plain_row_blocks_agree(monkeypatch):
     _assert_equal(R.resolve_registers_members(*args, window=16), whole, KEYS)
 
 
-def _kernel_model(case, W):
-    """The member kernel's algorithm in numpy, one row at a time."""
+def _rowwise_model(case, W):
+    """The base-pass design of the member kernel (W = 8) in numpy, one row
+    at a time: per member, the first later non-concurrent member and an
+    early exit; positions summed into output slots."""
     time, actor, seq, mem, is_del, table, cidx = [np.asarray(x)
                                                   for x in case]
     T, M = time.shape[0], W + 1
@@ -192,10 +195,172 @@ def _kernel_model(case, W):
         out['conflicts'][row] = slot[1:] - 1
         out['alive_after'][row] = alive.sum()
         out['visible_before'][row] = vb
+    return _finish(out)
+
+
+def _finish(out):
     out['packed'] = R.pack_register_word(
         torch.from_numpy(out['winner']),
         torch.from_numpy(out['alive_after'])).numpy()
     return {k: torch.from_numpy(np.asarray(v)) for k, v in out.items()}
+
+
+# -- the tier design (W >= 16): bit words over a block's span -----------------
+
+#: rows a block's span holds at most (kSpanMax of csrc/members.cu; the
+#: kernel is held bit-equal to the plain version on the card by
+#: chip_smoke.py, which catches a drift of either constant)
+SPAN_MAX = 384
+
+
+def _rows_per_block(W):
+    """Rows per block of the tier design (Plan<W>::R of csrc/members.cu)."""
+    return 64 if W <= 64 else 4096 // W
+
+
+def _ballot(pred):
+    """Packs bools [..., n] into uint32 words [..., ceil(n / 32)], entry
+    32 w + l in bit l of word w: what __ballot_sync gives a warp whose
+    lane l holds the predicate of entry 32 w + l."""
+    n = pred.shape[-1]
+    nw = (n + 31) // 32
+    p = np.zeros(pred.shape[:-1] + (nw * 32,), np.uint64)
+    p[..., :n] = pred
+    p = p.reshape(pred.shape[:-1] + (nw, 32)) << np.arange(32, dtype=np.uint64)
+    return p.sum(-1).astype(np.uint32)
+
+
+def _bit(words, i):
+    """Bit i of each row of `words` ([n, nw] uint32), i an int array."""
+    i = np.asarray(i)
+    return ((words[..., i >> 5] >> (i & 31).astype(np.uint32)) & 1) \
+        .astype(bool)
+
+
+def _popc(w):
+    return int(np.unpackbits(np.atleast_1d(np.asarray(w, np.uint32))
+                             .view(np.uint8)).sum())
+
+
+def _span_model(case, W, rows=None, span_max=None):
+    """The tier design of the member kernel in numpy, block by block:
+    `rows` consecutive rows per block; the span of their valid members;
+    when it holds at most `span_max` rows, knows and C bit words over the
+    span (built as ballots), each span row's rank in (actor desc, time
+    desc) order, and each row's member mask, resolved word by word with
+    alive bits kept at ranks; rows with a repeated member, and every row
+    of a block whose span is too long or holds two rows of equal (actor,
+    time), through the per-row branch (bit words over the row's own
+    slots).  Returns (outputs, {'span': rows, 'per_row': rows})."""
+    time, actor, seq, mem, is_del, table, cidx = [np.asarray(x)
+                                                  for x in case]
+    rows = rows or _rows_per_block(W)
+    span_max = span_max or SPAN_MAX
+    T, M = time.shape[0], W + 1
+    out = {'winner': np.full(T, -1, np.int32),
+           'conflicts': np.full((T, W), -1, np.int32),
+           'alive_after': np.zeros(T, np.int32),
+           'visible_before': np.zeros(T, bool),
+           'overflow': np.zeros(T, bool)}
+    branch = {'span': 0, 'per_row': 0}
+
+    def put(row, slot, n_alive, vb):
+        out['winner'][row] = slot[0] - 1
+        out['conflicts'][row] = slot[1:] - 1
+        out['alive_after'][row] = n_alive
+        out['visible_before'][row] = vb
+
+    for r0 in range(0, T, rows):
+        rr = np.arange(r0, min(r0 + rows, T))
+        idx = np.concatenate([rr[:, None], mem[rr]], axis=1)     # [n, M]
+        valid = idx >= 0
+        ent = np.clip(idx, 0, T - 1)
+        lo, hi = ent[valid].min(), ent[valid].max()
+        S = hi - lo + 1
+        left = list(rr)
+        if S <= span_max:
+            e = np.arange(lo, hi + 1)
+            a, q, t, c, d = actor[e], seq[e], time[e], cidx[e], is_del[e]
+            u, v = np.arange(S)[:, None], np.arange(S)[None, :]
+            K = _ballot(table[c[:, None], a[None, :]] >= q[None, :])
+            rank = np.array([sum(_popc(w) for w in _ballot(
+                (a > a[x]) | ((a == a[x]) & (t > t[x])))) for x in range(S)])
+            tie = ((a[u] == a[v]) & (t[u] == t[v]) & (u != v)).any()
+            knows_uv = (K[u, v >> 5] >> (v & 31).astype(np.uint32)) & 1
+            knows_vu = (K[v, u >> 5] >> (u & 31).astype(np.uint32)) & 1
+            C = _ballot((t[v] > t[u]) & ((knows_uv | knows_vu) > 0))
+        if S <= span_max and not tie:
+            left = []
+            for i, row in enumerate(rr):
+                s = np.where(valid[i], ent[i] - lo, -1)
+                mm = np.zeros(C.shape[1], np.uint32)
+                dup = False
+                for k in range(1, M):
+                    if s[k] >= 0:
+                        b = np.uint32(1 << (s[k] & 31))
+                        dup |= bool(mm[s[k] >> 5] & b)
+                        mm[s[k] >> 5] |= b
+                dup |= bool(_bit(mm, s[0]))
+                if dup:
+                    left.append(row)
+                    continue
+                branch['span'] += 1
+                self_w = np.zeros_like(mm)
+                self_w[s[0] >> 5] = np.uint32(1 << (s[0] & 31))
+                am = np.zeros_like(mm)           # alive bits at ranks
+                n_alive, vb = 0, False
+                for k in np.nonzero(s >= 0)[0]:
+                    x = s[k]
+                    sup = ((mm | self_w) & C[x]).any()
+                    sup_wo = (mm & C[x]).any()
+                    if d[x]:
+                        continue
+                    if not sup:
+                        am[rank[x] >> 5] |= np.uint32(1 << (rank[x] & 31))
+                        n_alive += 1
+                    vb |= k >= 1 and not sup_wo
+                slot = np.zeros(M, np.int64)
+                for k in np.nonzero(s >= 0)[0]:
+                    x, r = s[k], rank[s[k]]
+                    if _bit(am, r):
+                        below = np.uint32((1 << (r & 31)) - 1)
+                        pos = _popc(am[r >> 5] & below) + \
+                            sum(_popc(w) for w in am[:r >> 5])
+                        slot[pos] += lo + x + 1
+                put(row, slot, n_alive, vb)
+        for row in left:
+            branch['per_row'] += 1
+            ix = np.concatenate([[row], mem[row]])
+            vd = np.concatenate([[True], mem[row] >= 0])
+            src = np.clip(ix, 0, T - 1)
+            a, q, t, c, d = (actor[src], seq[src], time[src], cidx[src],
+                             is_del[src])
+            K = _ballot(table[c[:, None], a[None, :]] >= q[None, :])
+            alive = np.zeros(M, bool)
+            n_alive, vb = 0, False
+            y = np.arange(M)
+            for x in np.nonzero(vd)[0]:
+                p = vd & (t > t[x]) & (_bit(K[x:x + 1], y)[0] | _bit(K, x))
+                sup_wo = (_ballot(p & (y >= 1)) != 0).any()
+                sup = sup_wo or bool(p[0])
+                live = not d[x]
+                alive[x] = live and not sup
+                n_alive += alive[x]
+                vb |= x >= 1 and live and not sup_wo
+            slot = np.zeros(M, np.int64)
+            for x in np.nonzero(alive)[0]:
+                p = alive & ((a > a[x]) | ((a == a[x]) & (t > t[x])))
+                slot[sum(_popc(w) for w in _ballot(p))] += src[x] + 1
+            put(row, slot, n_alive, vb)
+    return _finish(out), branch
+
+
+def _kernel_model(case, W):
+    """The member kernel's algorithm at window W: the base-pass design at
+    W = 8, the tier design above."""
+    if W == 8:
+        return _rowwise_model(case, W)
+    return _span_model(case, W)[0]
 
 
 @pytest.mark.parametrize('W', [8, 16, 64])
@@ -212,6 +377,36 @@ def test_kernel_model_matches_plain_and_jax(W):
         time, actor, seq, mem, is_del, table, cidx = case
         _assert_equal(got, J.resolve_registers_members(
             time, actor, seq, mem, is_del, table, cidx, window=W), KEYS)
+
+
+@pytest.mark.parametrize('W', [16, 32, 64, 128, 256, 512, 1024])
+def test_tier_model_every_window(W):
+    """The tier design at every tier width, at the kernel's own block and
+    span sizes and at small ones (blocks of 2-4 rows, spans of 12-40) that
+    send blocks to the per-row branch and make spans straddle groups: a
+    tier chunk with groups of 1 row, of more than two blocks and longer
+    than a span, same-seq duplicates, repeated members and indexes
+    clipped at T; equal to the plain version and the JAX function.  Sizes
+    shrink with W to bound the JAX function's [T, W+1, W+1] tensors."""
+    rs = np.random.RandomState(100 + W)
+    n = max(12, min(80, (16 << 20) // (W + 1) ** 2))
+    g = max(3, n // 5)
+    cases = [members_case(rs, n, 6, W),
+             members_chunk_case(rs, [1, g, g + 1, 2 * g, 3], W),
+             members_chunk_case(rs, [2, n - 4, 2], W, n_actors=4)]
+    small = (2 if W >= 512 else 4, 12 if W >= 512 else 40)
+    taken = {'span': 0, 'per_row': 0}
+    for case in cases:
+        want = R.resolve_registers_members(*_t(case), window=W)
+        time, actor, seq, mem, is_del, table, cidx = case
+        _assert_equal(want, J.resolve_registers_members(
+            time, actor, seq, mem, is_del, table, cidx, window=W), KEYS)
+        for rows, span_max in ((None, None), small):
+            got, branch = _span_model(case, W, rows, span_max)
+            _assert_equal(got, want, KEYS)
+            for k in taken:
+                taken[k] += branch[k]
+    assert taken['span'] and taken['per_row']
 
 
 def test_auto_runs_plain_on_cpu_and_rejects_other_windows():

@@ -135,26 +135,52 @@ def _patch_slices(buf):
     return out
 
 
-def test_member_layout_resolved_by_wide_sliding_window():
+def _wave_of(key, n):
+    """The wave a doc key lands in: FNV-1a of the key, mod n (the C++
+    splitter's hash)."""
+    h = 2166136261
+    for b in key.encode():
+        h = ((h ^ b) * 16777619) & 0xffffffff
+    return h % n
+
+
+def sliding_per_wave(batch, n_waves, monkeypatch):
+    """registers.sliding_over_members summed over each wave's docs
+    applied alone, unsplit: the count a pipelined run must give, since
+    the sliding-window choice is made per wave."""
+    monkeypatch.setattr(native, 'PIPELINE_DEPTH', 1)
+    total = 0
+    for w in range(n_waves):
+        trace.reset()
+        NativeDocPool(device='cpu').apply_batch_bytes(_payload(
+            {d: chs for d, chs in batch.items()
+             if _wave_of(str(d), n_waves) == w}))
+        total += trace.metrics().get('registers.sliding_over_members', 0)
+    return total
+
+
+
+def test_member_layout_resolved_by_wide_sliding_window(monkeypatch):
     """Config 4 at 128 docs: some row key is written 9 times, so C++
     builds member windows and flags the same-change duplicate assigns,
     which the JAX pool escalates to tier 16.  The port covers the widest
     group with a 16-wide sliding window instead: no escalation, no oracle
-    row and the same patch bytes for every doc.  The JAX pool splits a
-    payload of 64 docs or more into waves (its wave pipelining, not
-    ported yet), which orders its result map by wave, so only the order
-    of docs in the map differs."""
-    payload = _payload(workloads.build_config_4(random.Random(7),
-                                                n_docs=128))
-    got = _patch_slices(NativeDocPool(device='cpu').apply_batch_bytes(
-        payload))
-    assert got == _patch_slices(JaxPool().apply_batch_bytes(payload))
+    row and the same result bytes, as a whole.  Both pools split the
+    payload into two waves, and the port makes the sliding-window choice
+    per wave, on each wave's widest group."""
+    batch = workloads.build_config_4(random.Random(7), n_docs=128)
+    payload = _payload(batch)
+    got = NativeDocPool(device='cpu').apply_batch_bytes(payload)
+    assert got == JaxPool().apply_batch_bytes(payload)
     jax_fallback = _fallback(jax_trace.metrics_snapshot())
     assert jax_fallback.get('fallback.escalated.w16', 0) > 0
     assert 'fallback.oracle' not in jax_fallback
     got = trace.metrics()
-    assert got.get('registers.sliding_over_members', 0) == 1
+    assert got['pipeline.waves'] == native.PIPELINE_DEPTH == 2
+    n_sliding = got.get('registers.sliding_over_members', 0)
+    assert n_sliding >= 1
     assert _fallback(got) == {}
+    assert n_sliding == sliding_per_wave(batch, 2, monkeypatch)
 
 
 def test_incremental_batches_delta_upload_clock_rows():
