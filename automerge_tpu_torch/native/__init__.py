@@ -37,6 +37,16 @@ phase b the tier words merge into the packed word on the device and
 only their conflict rows come back.  Groups too wide for every tier or
 over the scratch budget are resolved by the C++ oracle replay inside mid
 and counted as `fallback.oracle`.
+A batch whose list work falls on one long list object (C++ flags it
+`resident_ok`) takes the device-resident arena on a CUDA pool
+(`_dispatch_resident`, `native/resident.py`): the object's columns stay
+on the card between batches, only the batch's new rows and touched
+visibility cross, and the sibling sort runs on the card.
+
+Checkpoints (`save`, `load_batch`) are the v2 columnar container by
+default, byte for byte the JAX pool's; a v2 checkpoint's settled
+snapshot is adopted after the replay, so a reloaded doc keeps its
+compacted history.
 """
 
 import ctypes
@@ -55,6 +65,7 @@ from ..ops.dominance_kernel import dominance_grouped_auto
 from ..utils import doc_key, map_header, read_map_header
 from ._lib import lib, loaded, take_buf
 from .clock_cache import PoolClockCache
+from .resident import ResidentCache
 
 #: row count from which the packed word's 24-bit winner field is too
 #: narrow: larger batches read the unpacked register outputs and merge
@@ -70,6 +81,19 @@ PIPELINE_DEPTH = 2
 #: smallest doc count a payload is split at; the JAX pool's default
 #: AMTPU_PIPELINE_MIN_DOCS
 PIPELINE_MIN_DOCS = 64
+#: the device-resident arena (the JAX pool's AMTPU_RESIDENT): None takes
+#: it on a CUDA pool and declines it on a CPU pool, as the JAX pool does
+#: on an accelerator and on its CPU backend; True / False force it.  C++
+#: decides which batches qualify (its own AMTPU_RESIDENT* knobs latch at
+#: the library's first batch)
+RESIDENT = None
+#: the container `save` writes (the JAX pool's AMTPU_STORAGE_FORMAT):
+#: 'columnar' (v2) or 'json' (v1, the raw change history, and no
+#: snapshot adopted on load)
+STORAGE_FORMAT = 'columnar'
+#: most actors a doc's folded clock table holds when a loaded snapshot
+#: folds its settled clocks (the JAX pool's AMTPU_FOLDCLK_MAX_ACTORS)
+FOLDCLK_MAX_ACTORS = 256
 
 # ---------------------------------------------------------------------------
 # batch handles: every successful begin is paired with exactly one free
@@ -229,6 +253,10 @@ class NativeDocPool:
         # the full host path
         L.amtpu_pool_set_hostfull(self._pool, 0)
         self._resclk = PoolClockCache(self.device)
+        self._resident = ResidentCache(self.device)
+        # doc key -> {'frontier', 'chunks'}: the settled snapshot a v2
+        # checkpoint brought in, whose changes C++ no longer holds
+        self._storage = {}
 
     def __del__(self):
         L = loaded()
@@ -396,7 +424,7 @@ class NativeDocPool:
                                  'port drives the kernel path only')
         fdims = (ctypes.c_int64 * 6)()
         L.amtpu_fused_dims(bh, fdims)
-        fused_ok, W, dLp, dTp, _resident_ok, res_clock = \
+        fused_ok, W, dLp, dTp, resident_ok, res_clock = \
             [int(x) for x in fdims]
         trace.metric('ops.register_rows', T)
         # C++ builds member windows once a register group is wider than
@@ -428,7 +456,7 @@ class NativeDocPool:
             while weff < max_group:
                 weff *= 2
         ctx.update(dims=(T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp),
-                   mem=mem, hovf=hovf, weff=weff)
+                   mem=mem, hovf=hovf, weff=weff, resident_ok=resident_ok)
         if res_clock and Tp > 0:
             ctx['ctab_dev'] = self._resclk.table(L, self._pool)
         elif not res_clock:
@@ -503,6 +531,9 @@ class NativeDocPool:
                 r['d'], r['si'], mem_dev, ctx['weff'],
                 want_visible_before=False)
             combo = reg_out['packed']
+        elif ctx['resident_ok'] and mem is None and self._dispatch_resident(
+                L, ctx, r, max_obj, dLp, dTp):
+            return
         else:
             e = self._arena_views(L, bh, Lp)
             n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
@@ -521,6 +552,69 @@ class NativeDocPool:
             ctx['rank'] = rank
         self._fetch_async(ctx, combo)
         ctx.update(combo=combo, reg_out=reg_out)
+
+    def _resident_on(self):
+        return self.device.type == 'cuda' if RESIDENT is None \
+            else bool(RESIDENT)
+
+    def _dispatch_resident(self, L, ctx, r, max_obj, dLp, dTp):
+        """The fused dispatch over the device-resident arena of the
+        batch's one list object: only the per-batch rows are uploaded.
+        Returns False, before any device work, where the JAX pool
+        declines too (the route is off, the object does not start the
+        batch layout, its length is out of range, or C++ has no raw
+        arena); the standard fused path then runs with the same
+        kernels."""
+        if not self._resident_on():
+            return False
+        bh = ctx['bh']
+        meta = (ctypes.c_int64 * 4)()
+        L.amtpu_dom_obj_meta(bh, 0, meta)
+        doc_idx, obj_sid, base, n_now = [int(x) for x in meta]
+        if base != 0 or n_now <= 0 or n_now > dLp:
+            return False
+        doc_id = L.amtpu_batch_doc_id(bh, doc_idx)
+        entry = self._resident.get_entry(L, self._pool, doc_id, obj_sid,
+                                         n_now, dLp)
+        if entry is None:
+            return False
+        oe = np.array(_view(L.amtpu_dom_oe(bh, 0), (1, dTp)))
+        ov = np.array(_view(L.amtpu_dom_ov(bh, 0), (1, dTp)), bool)
+        n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
+        # dirty until the post-emit visibility sync: a batch that fails
+        # in between leaves the device visibility unsynced
+        entry.dirty = True
+        reg_out, rank, combo = register_ops.resolve_rank_dominate_resident(
+            r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'], r['d'],
+            r['si'], entry.par, entry.ctr, entry.act, entry.ev, n_now,
+            register_ops.upload(oe, self.device),
+            self._upload(_view(L.amtpu_fdom_domsrc(bh), (1, dTp))),
+            register_ops.upload(ov, self.device), n_iters=n_iters,
+            window=ctx['weff'])
+        self._fetch_async(ctx, combo)
+        touched = np.unique(oe[0][ov[0] & (oe[0] >= 0)]).astype(np.int32)
+        ctx.update(combo=combo, reg_out=reg_out, rank=rank,
+                   resident=(entry, doc_id, obj_sid, n_now, touched))
+        trace.metric('resident.dispatch')
+        trace.metric('resident.dispatches')
+        return True
+
+    def _mark_resident_stale(self, L, ctx):
+        """Marks the resident entry of every list object this non-resident
+        batch touched as dirty: its emit changed C++ visibility without a
+        device sync."""
+        bh = ctx['bh']
+        bdims = (ctypes.c_int64 * 3)()
+        for blk in range(ctx['dims'][6]):
+            L.amtpu_dom_dims(bh, blk, bdims)
+            meta = (ctypes.c_int64 * (4 * int(bdims[0])))()
+            for o in range(int(L.amtpu_dom_obj_meta(bh, blk, meta))):
+                doc_id = L.amtpu_batch_doc_id(bh, int(meta[o * 4]))
+                entry = self._resident.entries.get(
+                    (doc_id, int(meta[o * 4 + 1])))
+                if entry is not None:
+                    entry.dirty = True
+                    trace.metric('resident.cross_path_invalidation')
 
     def _phase_b(self, ctx):
         """Collect device results, run host mid + emit, return patch bytes."""
@@ -603,6 +697,11 @@ class NativeDocPool:
         with trace.span('host.finish'):
             if L.amtpu_finish(bh) != 0:
                 _raise_last()
+        if ctx.get('resident') is not None:
+            # post-emit visibility sync from the C++ arena
+            self._resident.sync_after_emit(L, self._pool, *ctx['resident'])
+        elif self._resident.entries:
+            self._mark_resident_stale(L, ctx)
         out_len = ctypes.c_int64()
         ptr = L.amtpu_result(bh, ctypes.byref(out_len))
         return ctypes.string_at(ptr, out_len.value) \
@@ -886,28 +985,94 @@ class NativeDocPool:
         return msgpack.unpackb(self._query(lib().amtpu_get_clock, doc_id),
                                raw=False)
 
-    # -- checkpoints (v1 container) -------------------------------------
+    # -- checkpoints ----------------------------------------------------
+
+    def _tail_raws(self, doc_id):
+        """Raw bytes of the changes C++ still holds for the doc (those
+        after an adopted snapshot), application order."""
+        raw = self._query(lib().amtpu_save, doc_id)
+        return storage.split_changes_array(
+            memoryview(raw)[len(storage.CKPT_V1_PREFIX):])
 
     def save(self, doc_id):
-        """The doc's change history as a v1 checkpoint container."""
-        raw = self._query(lib().amtpu_save, doc_id)
-        return storage.pack_checkpoint_v1(storage.split_changes_array(
-            memoryview(raw)[len(storage.CKPT_V1_PREFIX):]))
+        """The doc as a checkpoint: the v2 columnar container (its adopted
+        snapshot's frontier and chunks, if any, and the tail C++ holds),
+        or under STORAGE_FORMAT = 'json' the v1 container of the whole
+        history."""
+        st = self._storage.get(doc_key(doc_id))
+        tail = self._tail_raws(doc_id)
+        if STORAGE_FORMAT == 'json':
+            head = [] if st is None else [
+                raw for chunk in st['chunks']
+                for raw in storage.decode_columnar(chunk)]
+            return storage.pack_checkpoint_v1(head + tail)
+        if st is None:
+            return storage.pack_checkpoint({}, [], tail)
+        return storage.pack_checkpoint(st['frontier'], st['chunks'], tail)
 
     def load_batch(self, blobs):
-        """Restores many v1 checkpoints ({doc_id: bytes}) as ONE batched
-        replay through the device kernels."""
+        """Restores many checkpoints ({doc_id: bytes}, v1 or v2) as ONE
+        batched replay through the device kernels.  A v2 checkpoint's
+        snapshot is adopted afterwards into docs that held no state before
+        the load: a live doc keeps its own history (the replay of an
+        older checkpoint is a no-op there, and its snapshot need not be a
+        prefix of the doc's history)."""
         parts = [map_header(len(blobs))]
+        adopts = []
+        fresh_pool = self.doc_count() == 0
         for doc_id, data in blobs.items():
-            if not bytes(data[:len(storage.CKPT_V1_PREFIX)]) == \
-                    storage.CKPT_V1_PREFIX:
-                raise RangeError('not a v1 amtpu-doc checkpoint: %r'
+            key = doc_key(doc_id)
+            data = bytes(data)
+            if data.startswith(storage.CKPT_V1_PREFIX):
+                body = data[len(storage.CKPT_V1_PREFIX):]
+            elif data.startswith(storage.CKPT_V2_PREFIX):
+                try:
+                    frontier, chunks, tail = \
+                        storage.unpack_checkpoint_parts(data)
+                    raws = [raw for chunk in chunks
+                            for raw in storage.decode_columnar(chunk)]
+                    raws += storage.decode_columnar(tail)
+                except ValueError as e:
+                    raise RangeError('corrupt checkpoint for %r: %s'
+                                     % (doc_id, e))
+                body = storage.join_changes_array(raws)
+                if frontier and chunks and STORAGE_FORMAT != 'json' \
+                        and (fresh_pool or not self._has_clock(doc_id)):
+                    adopts.append((key, frontier, chunks))
+            else:
+                raise RangeError('not an amtpu-doc checkpoint: %r'
                                  % (doc_id,))
-            parts.append(msgpack.packb(doc_key(doc_id), use_bin_type=True))
-            parts.append(bytes(data[len(storage.CKPT_V1_PREFIX):]))
+            parts.append(msgpack.packb(key, use_bin_type=True))
+            parts.append(body)
         self.apply_batch_bytes(b''.join(parts))
+        for key, frontier, chunks in adopts:
+            self._adopt_snapshot(key, frontier, chunks)
 
     def load(self, doc_id, data):
         """Restores one checkpoint; returns the doc's whole-state patch."""
+        if not storage.is_checkpoint(bytes(data)):
+            raise RangeError('not an amtpu-doc checkpoint')
         self.load_batch({doc_id: data})
         return self.get_patch(doc_id)
+
+    def _has_clock(self, doc_id):
+        try:
+            return bool(self.get_clock(doc_id).get('clock'))
+        except Exception:
+            return False
+
+    def _adopt_snapshot(self, key, frontier, chunks):
+        """Installs a loaded snapshot for doc `key`: C++ drops the history
+        behind its frontier (so `save` does not repeat those changes in
+        the tail) and folds the settled op records and clocks, as the JAX
+        pool does after a load."""
+        self._storage[key] = {'frontier': dict(frontier),
+                              'chunks': list(chunks)}
+        L = lib()
+        k = key.encode()
+        fb = msgpack.packb(dict(frontier), use_bin_type=True)
+        for fn, extra in ((L.amtpu_truncate_history, ()),
+                          (L.amtpu_fold_settled, ()),
+                          (L.amtpu_fold_clocks, (FOLDCLK_MAX_ACTORS,))):
+            if fn(self._pool, k, fb, len(fb), *extra) < 0:
+                _raise_last()

@@ -73,6 +73,26 @@ _ABI = {
     'amtpu_shard_split': (_vp, [_cp, _i64, _int]),
     'amtpu_shard_buf': (_u8p, [_vp, _int, _i64p]),
     'amtpu_shard_free': (None, [_vp]),
+    # v2 checkpoints: the columnar codec (raws cross BIN-wrapped in a
+    # msgpack array both ways), history truncation and settled-state
+    # folding behind a msgpack {actor: seq} frontier
+    'amtpu_columnar_encode': (_u8p, [_cp, _i64, _i64p, _i64p]),
+    'amtpu_columnar_decode': (_u8p, [_cp, _i64, _i64p]),
+    'amtpu_truncate_history': (_i64, [_vp, _cp, _cp, _i64]),
+    'amtpu_fold_settled': (_i64, [_vp, _cp, _cp, _i64]),
+    'amtpu_fold_clocks': (_i64, [_vp, _cp, _cp, _i64, _i64]),
+    # the device-resident arena: per-object metadata of dom block blk
+    # (doc index, obj sid, arena base, arena length; 4 i64 per object,
+    # returns the object count), the batch's doc ids, interned strings
+    # and the raw arena columns of (doc, obj) (ctr, actor sid, parent,
+    # visible; returns the length, 0 when absent)
+    'amtpu_dom_obj_meta': (_i64, [_vp, _i64, _i64p]),
+    'amtpu_batch_doc_id': (_cp, [_vp, _i64]),
+    'amtpu_intern_str': (_cp, [_vp, ctypes.c_uint32]),
+    'amtpu_arena_raw': (_i64, [
+        _vp, _cp, ctypes.c_uint32, ctypes.POINTER(_i32p),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.POINTER(_i32p), ctypes.POINTER(_u8p)]),
 }
 for _name in ('g', 't', 'a', 's', 'clocktab', 'clockidx', 'sort', 'obj',
               'par', 'ctr', 'act', 'linsort', 'memidx'):

@@ -2,7 +2,8 @@
 
 `linearize` computes the total RGA order of every element of every list
 object in O(log L) pointer-doubling rounds (sibling groups from the
-host's sibling sort, DFS escape pointers, list ranking).  RGA never
+host's sibling sort or, for the device-resident arena, a sort on the
+device; DFS escape pointers; list ranking).  RGA never
 reorders existing elements, so the final ranks hold at every step of the
 batch, and per-op list indexes become dominance counts: "visible
 elements of the same object ranked below at time t".
@@ -22,18 +23,32 @@ def ceil_log2(n):
     return bits
 
 
-def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx):
+def sibling_sort(obj, parent, ctr, actor, valid):
+    """The sibling sort on the device: the permutation of
+    np.lexsort((-actor, -ctr, parent, where(valid, obj, 2**30))), as four
+    stable sorts from the last key to the first.  Rows equal on every key
+    (the padding) keep their index order, as in a stable lexsort.
+    Returns [L] int32."""
+    perm = torch.arange(obj.shape[0], device=obj.device)
+    skey_obj = torch.where(valid, obj, 2 ** 30)
+    for key in (-actor, -ctr, parent, skey_obj):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    return perm.to(torch.int32)
+
+
+def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
     """Total RGA order of every element of every list object.
 
     Args:
       obj:    [L] int32 -- list-object id per element (dense, < L).
       parent: [L] int32 -- arena index of the insertion parent, -1 = head.
       ctr, actor: [L] int32 -- elemId counter and actor rank (the sibling
-              order keys, already applied by `sort_idx`).
+              order keys).
       valid:  [L] bool.
       n_iters: int >= ceil(log2(L)) + 1 pointer-doubling rounds.
       sort_idx: [L] int32 host sibling sort, np.lexsort((-actor, -ctr,
-              parent, obj-with-invalid-last)).
+              parent, obj-with-invalid-last)); None sorts on the device
+              (`sibling_sort`, the same permutation).
 
     Returns rank [L] int32: position in the object's element order
     (visible or not), -1 for invalid rows.
@@ -43,6 +58,8 @@ def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx):
     i32 = torch.int32
     neg1 = torch.tensor(-1, dtype=i32, device=dev)
     rows = torch.arange(L, device=dev)
+    if sort_idx is None:
+        sort_idx = sibling_sort(obj, parent, ctr, actor, valid)
     si = sort_idx.long()
 
     # --- 1. sibling groups: (obj, parent) runs in sorted order ----------

@@ -315,17 +315,56 @@ def resolve_rank_dominate(group, time, actor, seq, clock_table, clock_idx,
     rank = linearize(eobj, epar, ectr, eact, evalid, n_iters,
                      sort_idx=lin_sort)
     L = rank.shape[0]
-    neg = torch.tensor(-1, dtype=torch.int32, device=rank.device)
-    er = torch.where(er_src >= 0, rank[er_src.clamp(0, L - 1).long()], neg)
-    orank = torch.where(orank_src >= 0,
-                        rank[orank_src.clamp(0, L - 1).long()], neg)
+    er = torch.where(er_src >= 0, rank[er_src.clamp(0, L - 1).long()], -1)
+    orank, od = dominance_op_inputs(reg, rank, orank_src, dom_src,
+                                    orank_src >= 0)
+    idx = dominance_grouped_auto(v0, er, oe, orank, od, ov, chunk=chunk)
+    combo = torch.cat([reg['packed'], idx.reshape(-1)])
+    return reg, rank, combo
+
+
+def dominance_op_inputs(reg, rank, elem, dom_src, has_elem):
+    """Per-op dominance inputs from the register outputs and a fresh rank
+    vector: orank gathers the rank of element `elem` where `has_elem`
+    holds (-1 elsewhere), od is the op's visibility delta (alive_after -
+    visible_before of its register row `dom_src`, 0 where -1).  Shared
+    by `resolve_rank_dominate` and `resolve_rank_dominate_resident`."""
+    C = rank.shape[0]
+    orank = torch.where(has_elem, rank[elem.clamp(0, C - 1).long()], -1)
     T = reg['alive_after'].shape[0]
     row = dom_src.clamp(0, T - 1).long()
     od = torch.where(dom_src >= 0,
                      (reg['alive_after'][row] > 0).to(torch.int32)
-                     - reg['visible_before'][row].to(torch.int32),
-                     torch.zeros((), dtype=torch.int32, device=rank.device))
-    idx = dominance_grouped_auto(v0, er, oe, orank, od, ov, chunk=chunk)
+                     - reg['visible_before'][row].to(torch.int32), 0)
+    return orank, od
+
+
+def resolve_rank_dominate_resident(group, time, actor, seq, clock_table,
+                                   clock_idx, is_del, sort_idx, epar, ectr,
+                                   eact, ev, n_elems, oe, dom_src, ov,
+                                   n_iters=1, window=WINDOW, chunk=64):
+    """`resolve_rank_dominate` over a device-resident single-object arena
+    (`native/resident.py`): epar/ectr/eact [C] int32 and the visibility
+    ev [C] float32 are long-lived device columns at the arena's padded
+    capacity C, of which the first `n_elems` rows are live; oe/dom_src/ov
+    are [1, Tp].  What the host lays out per batch on the standard path
+    happens here: the sibling sort runs on the device, v0 is ev, er is
+    the rank itself (one object at arena base 0) and orank gathers the
+    rank at oe.  Registers resolve in sliding mode (C++ never makes a
+    member-mode batch resident).  Returns (reg, rank, combo) as
+    `resolve_rank_dominate` does."""
+    from .dominance_kernel import dominance_grouped_auto
+    from .list_rank import linearize
+    reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
+                   sort_idx, None, window)
+    C = epar.shape[0]
+    valid = torch.arange(C, device=epar.device) < n_elems
+    rank = linearize(torch.zeros_like(epar), epar, ectr, eact, valid,
+                     n_iters)
+    er = torch.where(valid, rank, -1)[None, :]
+    orank, od = dominance_op_inputs(reg, rank, oe, dom_src, ov)
+    idx = dominance_grouped_auto(ev[None, :], er, oe, orank, od, ov,
+                                 chunk=chunk)
     combo = torch.cat([reg['packed'], idx.reshape(-1)])
     return reg, rank, combo
 

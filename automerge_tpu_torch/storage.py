@@ -1,16 +1,29 @@
-"""The v1 checkpoint container: a msgpack map {'format': 'amtpu-doc-v1',
-'changes': [raw change, ...]} holding a doc's change history in
-application order.  Built and split at the byte level, so a checkpoint
-never round-trips its changes through Python objects."""
+"""Checkpoint containers, built and split at the byte level.
+
+v1 is a msgpack map {'format': 'amtpu-doc-v1', 'changes': [raw change,
+...]} holding a doc's change history in application order.  v2 (the
+default `save`) is {'format': 'amtpu-doc-v2c', 'frontier': {actor: seq},
+'chunks': [columnar blob, ...], 'tail': columnar blob}: the settled
+snapshot chunks hold exactly the changes at or behind the frontier, the
+tail everything after.  The columnar codec is the C++ one of the port's
+own build of `native/core.cpp` (`amtpu_columnar_encode` / `_decode`), the
+codec the JAX package's pool calls too, so both write the same bytes.
+"""
+
+import ctypes
 
 import msgpack
 
 FORMAT_V1 = 'amtpu-doc-v1'
+FORMAT_V2 = 'amtpu-doc-v2c'
 
-#: fixed byte prefix of a v1 checkpoint; the remainder is the raw
-#: msgpack array of changes
+#: fixed byte prefixes: both containers are msgpack maps opening with
+#: their format key, so a prefix compare classifies a blob; the rest of
+#: a v1 checkpoint is the raw msgpack array of changes
 CKPT_V1_PREFIX = (b'\x82' + msgpack.packb('format') +
                   msgpack.packb(FORMAT_V1) + msgpack.packb('changes'))
+CKPT_V2_PREFIX = (b'\x84' + msgpack.packb('format') +
+                  msgpack.packb(FORMAT_V2))
 
 
 def split_changes_array(buf):
@@ -49,3 +62,67 @@ def join_changes_array(raws):
 def pack_checkpoint_v1(raws):
     """Raw change history, application order, as a v1 container."""
     return CKPT_V1_PREFIX + join_changes_array(raws)
+
+
+def encode_columnar(raws):
+    """Raw change bytes -> one columnar blob (the C++ codec)."""
+    from .native._lib import lib, take_buf
+    payload = msgpack.packb([bytes(r) for r in raws], use_bin_type=True)
+    out_len = ctypes.c_int64()
+    ptr = lib().amtpu_columnar_encode(payload, len(payload),
+                                      ctypes.byref(out_len), None)
+    if not ptr:
+        raise ValueError('columnar encode failed: %s'
+                         % lib().amtpu_last_error().decode())
+    return take_buf(ptr, out_len.value)
+
+
+def decode_columnar(blob):
+    """Columnar blob -> the raw change bytes it was encoded from, byte for
+    byte.  A corrupt blob raises ValueError."""
+    from .native._lib import lib, take_buf
+    blob = bytes(blob)
+    out_len = ctypes.c_int64()
+    ptr = lib().amtpu_columnar_decode(blob, len(blob), ctypes.byref(out_len))
+    if not ptr:
+        raise ValueError('corrupt columnar blob: %s'
+                         % lib().amtpu_last_error().decode())
+    return msgpack.unpackb(take_buf(ptr, out_len.value), raw=False)
+
+
+def pack_checkpoint(frontier, chunks, tail_raws):
+    """The v2 container: settled snapshot chunks (columnar blobs,
+    application order, exactly the changes at or behind `frontier`) and
+    the tail (every later change, columnar-encoded here)."""
+    return (CKPT_V2_PREFIX +
+            msgpack.packb('frontier') +
+            msgpack.packb(dict(frontier or {}), use_bin_type=True) +
+            msgpack.packb('chunks') +
+            msgpack.packb(list(chunks), use_bin_type=True) +
+            msgpack.packb('tail') +
+            msgpack.packb(encode_columnar(tail_raws), use_bin_type=True))
+
+
+def is_checkpoint(data):
+    return data.startswith(CKPT_V1_PREFIX) \
+        or data.startswith(CKPT_V2_PREFIX)
+
+
+def unpack_checkpoint_parts(data):
+    """A v2 container -> (frontier, chunks, tail blob), nothing decoded.
+    A corrupt container raises ValueError, whatever the parse tripped
+    on."""
+    if not data.startswith(CKPT_V2_PREFIX):
+        raise ValueError('not an amtpu v2 checkpoint container')
+    try:
+        obj = msgpack.unpackb(data, raw=False, strict_map_key=False)
+        tail = obj.get('tail')
+        chunks = list(obj.get('chunks') or ())
+        frontier = obj.get('frontier') or {}
+    except Exception as e:
+        raise ValueError('corrupt checkpoint container: %s' % e)
+    if not isinstance(tail, (bytes, bytearray)):
+        raise ValueError('checkpoint tail missing')
+    if not all(isinstance(c, (bytes, bytearray)) for c in chunks):
+        raise ValueError('checkpoint chunks not bytes')
+    return frontier, [bytes(c) for c in chunks], bytes(tail)

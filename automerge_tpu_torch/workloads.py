@@ -10,6 +10,10 @@ window).  They return {doc: [change dict, ...]} and draw from the
 `random.Random` given, in the same order as `bench.py`, so the same seed
 gives the same batch.  `hot_key_batch` makes one hot map key with many
 concurrent writers, the shape that climbs the escalation ladder.
+`long_text_doc` and `keystroke_edits` are a long text document and the
+edits a collaborative editor sends to it, one keystroke per batch (the
+shape of `bench.py::run_multichip_sp_child`, the JAX package's probe of
+its device-resident arena).
 """
 
 from .utils import ROOT_ID
@@ -162,3 +166,100 @@ def hot_key_batch(n_writers, with_list=True):
 
 def op_count(batch):
     return sum(len(c['ops']) for chs in batch.values() for c in chs)
+
+
+#: the Text object of `long_text_doc`
+TEXT_OBJ = 't'
+
+
+def long_text_doc(n_elems, actor='a0'):
+    """One Text object of `n_elems` characters typed by one actor: two
+    changes (make and link the object, then every character, each an
+    `ins` after the previous one and a `set`)."""
+    chs = [{'actor': actor, 'seq': 1, 'deps': {}, 'ops': [
+        {'action': 'makeText', 'obj': TEXT_OBJ},
+        {'action': 'link', 'obj': ROOT_ID, 'key': 'text',
+         'value': TEXT_OBJ}]}]
+    ops = []
+    prev = '_head'
+    for e in range(1, n_elems + 1):
+        ops.append({'action': 'ins', 'obj': TEXT_OBJ, 'key': prev,
+                    'elem': e})
+        prev = '%s:%d' % (actor, e)
+        ops.append({'action': 'set', 'obj': TEXT_OBJ, 'key': prev,
+                    'value': chr(97 + e % 26)})
+    chs.append({'actor': actor, 'seq': 2, 'deps': {}, 'ops': ops})
+    return chs
+
+
+def edit_inserts(n_keys):
+    """Characters `keystroke_edits(n_elems, n_keys)` inserts into the
+    text."""
+    return n_keys + 7
+
+
+def keystroke_edits(n_elems, n_keys=24):
+    """The edits that follow `long_text_doc(n_elems)` (actor a0), as a
+    list of steps (kind, body, single_list):
+
+    * kind 'batch': body is the doc's change list of one batch;
+    * kind 'local': body is an `apply_local_change` request;
+    * single_list: whether the step's list work falls on the text alone.
+
+    In order: `n_keys` keystrokes of a0 (an `ins` after the cursor and a
+    `set`, one change per batch); a delete; an insert by b0 concurrent
+    with a0's last keystroke, at the same place; a keystroke of a00,
+    whose actor id sorts between a0 and b0; a local keystroke of a0 and
+    its undo; one batch that also makes and fills a second list while
+    deleting a character of the text; four more keystrokes of a0.  Each
+    change depends on every other actor's latest change it has seen."""
+    clock = {'a0': 2}
+    state = {'e': n_elems, 'cursor': 'a0:%d' % n_elems}
+
+    def change(actor, ops, deps=None):
+        seq = clock.get(actor, 0) + 1
+        if deps is None:
+            deps = {a: s for a, s in clock.items() if a != actor}
+        clock[actor] = seq
+        return {'actor': actor, 'seq': seq, 'deps': deps, 'ops': ops}
+
+    def key_ops(actor, after=None):
+        state['e'] += 1
+        elem = '%s:%d' % (actor, state['e'])
+        ops = [{'action': 'ins', 'obj': TEXT_OBJ,
+                'key': after or state['cursor'], 'elem': state['e']},
+               {'action': 'set', 'obj': TEXT_OBJ, 'key': elem,
+                'value': chr(65 + state['e'] % 26)}]
+        state['cursor'] = elem
+        return ops
+
+    def keystrokes(n):
+        return [('batch', [change('a0', key_ops('a0'))], True)
+                for _ in range(n)]
+
+    steps = keystrokes(n_keys)
+    steps.append(('batch', [change('a0', [
+        {'action': 'del', 'obj': TEXT_OBJ,
+         'key': 'a0:%d' % (n_elems // 2)}])], True))
+    # b0 has not seen a0's last keystroke: it inserts at the same place,
+    # with the same element counter
+    before_last = steps[n_keys - 1][1][0]['ops'][0]['key']
+    a0_seen = {'a0': clock['a0'] - 2}
+    state['e'] -= 1
+    steps.append(('batch', [change('b0', key_ops('b0', before_last),
+                                   deps=a0_seen)], True))
+    steps.append(('batch', [change('a00', key_ops('a00'))], True))
+    local = change('a0', key_ops('a0'))
+    steps.append(('local', dict(local, requestType='change'), True))
+    undo = change('a0', [])
+    steps.append(('local', {'requestType': 'undo', 'actor': 'a0',
+                            'seq': undo['seq'], 'deps': undo['deps']}, True))
+    steps.append(('batch', [change('a0', [
+        {'action': 'makeList', 'obj': 'l2'},
+        {'action': 'link', 'obj': ROOT_ID, 'key': 'other', 'value': 'l2'},
+        {'action': 'ins', 'obj': 'l2', 'key': '_head', 'elem': 1},
+        {'action': 'set', 'obj': 'l2', 'key': 'a0:1', 'value': 9},
+        {'action': 'del', 'obj': TEXT_OBJ,
+         'key': 'a0:%d' % (n_elems // 3)}])], False))
+    steps += keystrokes(4)
+    return steps

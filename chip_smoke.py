@@ -20,9 +20,13 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      same way, in two waves: K1 must have launched;
   3. loads v1 checkpoints saved by the CPU pool into a card pool as one
      batched replay in two waves: every doc's patch must equal the CPU
-     pool's; then applies a pipelined batch of 256 docs with every
-     private host array overwritten as soon as its upload returned
-     (hostile staging): the bytes must still equal the CPU pool's;
+     pool's; saves the same docs from the config-3 card pool as v2
+     checkpoints (the default): the bytes must equal the CPU pool's
+     saves, and a fresh card pool loads them in one batch of two waves
+     with every patch equal to the CPU pool's; then applies a pipelined
+     batch of 256 docs with every private host array overwritten as
+     soon as its upload returned (hostile staging): the bytes must
+     still equal the CPU pool's;
   4. applies the 64-replica catch-up backlog (bench config 5: 8 docs x
      64 replicas x 13 changes x 15 ops, 99,840 ops, every register group
      wider than the member window) as ONE batch: K3 must have launched
@@ -33,7 +37,19 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      oracle row (K3 and K2 launch), the third is over the scratch budget
      and all 300 rows take the oracle, as in the JAX package; the bytes
      must equal a CPU pool's in each case;
-  6. holds each kernel against its plain PyTorch version on the card,
+  6. edits a long text document (`workloads.long_text_doc`, then
+     `workloads.keystroke_edits`: keystrokes one per batch, a delete, a
+     concurrent insert, an actor that sorts between two known ones, a
+     local change and its undo, a batch that also fills a second list)
+     of 32,768 and 262,144 characters on a card pool, where the batches
+     whose list work falls on the text alone take the device-resident
+     arena: every such batch must take it, a keystroke must upload one
+     row, the whole arena may cross only at the first batch and after
+     the two invalidations, K1 and K2 must launch, and every result
+     must equal that of a CPU pool (32,768) and of a card pool with the
+     route off (both sizes); prints the per-edit wall time, spans and
+     counters of both routes, and times one resident dispatch alone;
+  7. holds each kernel against its plain PyTorch version on the card,
      bit-equal (integer outputs, tolerance 0), at the inputs the main
      paths gave it, at random shapes and at the edges of each design
      (register groups of exactly W and W + 1 rows across tile edges;
@@ -63,6 +79,20 @@ import traceback
 
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_INT_OPS_PER_S = 67e12          # non-tensor 32-bit rate (fp32 entry)
+
+#: long-document sizes of the resident phase (characters once the edit
+#: stream has run, so the arena keeps one capacity), the keystrokes of
+#: its stream and the edits its per-edit time is the median of (every
+#: keystroke after the first two)
+RESIDENT_SIZES = (32768, 262144)
+N_KEYS = 24
+TIMED_EDITS = slice(3, 1 + N_KEYS)
+EDIT_SPANS = ('host.begin', 'device.dispatch', 'device.collect', 'host.mid',
+              'host.finish')
+RESIDENT_COUNTERS = ('resident.dispatches', 'resident.full_upload_rows',
+                     'resident.delta_upload_rows', 'resident.no_upload',
+                     'resident.actor_invalidation',
+                     'resident.cross_path_invalidation')
 
 
 def log(*args):
@@ -445,6 +475,178 @@ def kernel_cases(torch, np, card):
     return err1, err2
 
 
+def count_launches(torch, fn):
+    """(kernels, copies and fills) that one call of fn puts on the card,
+    from torch.profiler's CUDA activity; None when the profiler gives
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as e:                    # the profiler is a probe
+        log('resident dispatch launches: not measured (%s)' % e)
+        return None
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    copies = sum(1 for n in dev if 'memcpy' in n.lower()
+                 or 'memset' in n.lower())
+    return len(dev) - copies, copies
+
+
+def _delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def run_stream(torch, trace, pool, steps, payloads):
+    """Applies an edit stream to one pool, step by step.  Returns the
+    results (batch bytes or local-change patches) and, per step, the
+    wall seconds (host clock, ending in a device synchronize) and the
+    counters and spans the step added."""
+    out = {'results': [], 'wall': [], 'counts': [], 'spans': []}
+    for (kind, body, _single), payload in zip(steps, payloads):
+        m0 = trace.snapshot()
+        t = time.perf_counter()
+        if kind == 'batch':
+            res = pool.apply_batch_bytes(payload)
+        else:
+            res = pool.apply_local_change('doc', dict(body))
+        torch.cuda.synchronize()
+        out['wall'].append(time.perf_counter() - t)
+        m1 = trace.snapshot()
+        out['counts'].append(_delta(m0['metrics'], m1['metrics']))
+        out['spans'].append(_delta(m0['spans'], m1['spans']))
+        out['results'].append(res)
+    return out
+
+
+def check_resident_counts(label, steps, counts):
+    """The route took every single-list step and no other; a step
+    uploads at most one row as a delta; the whole arena crossed only at
+    the first batch, at the middle-sorting actor's keystroke and at the
+    keystroke after the two-list batch."""
+    singles = [single for _k, _b, single in steps]
+    took = [c.get('resident.dispatches', 0) for c in counts]
+    if took != [int(x) for x in singles]:
+        raise AssertionError('%s: resident dispatches per step %s, single-'
+                             'list steps %s' % (label, took, singles))
+    if any(c.get('resident.delta_upload_rows', 0) > 1 for c in counts):
+        raise AssertionError('%s: a step uploaded more than one row as a '
+                             'delta' % label)
+    middle = next(i for i, (k, b, _s) in enumerate(steps)
+                  if k == 'batch' and b[0]['actor'] == 'a00')
+    cross = singles.index(False)
+    full = [i for i, c in enumerate(counts)
+            if c.get('resident.full_upload_rows', 0)]
+    if full != [0, middle, cross + 1]:
+        raise AssertionError('%s: full uploads at steps %s, expected %s'
+                             % (label, full, [0, middle, cross + 1]))
+
+
+def edit_summary(run_out):
+    """Median per-edit wall (ms) and spans (ms) over the timed edits,
+    and the stream's counters."""
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] * 1e3
+    walls = run_out['wall'][TIMED_EDITS]
+    spans = {k: med([s.get(k, 0.0) for s in run_out['spans'][TIMED_EDITS]])
+             for k in EDIT_SPANS}
+    counts = {}
+    for c in run_out['counts']:
+        for k in RESIDENT_COUNTERS:
+            if c.get(k):
+                counts[k] = counts.get(k, 0) + c[k]
+    return {'edits': len(walls), 'wall_ms': med(walls), 'spans_ms': spans,
+            'counters': counts}
+
+
+def resident_phase(torch, card, workloads, native, NativeDocPool, R, drive,
+                   K1, K2):
+    """Phase 6: the long-document edit stream at each size on the
+    resident route (a default card pool), against the route off (a card
+    pool with RESIDENT = False) and, at the smaller size, a CPU pool.
+    Returns {size: {'resident': summary, 'off': summary, 'dispatch_ms',
+    'dispatch_launches'}}."""
+    import msgpack
+
+    from automerge_tpu_torch import trace
+    report = {}
+    orig = R.resolve_rank_dominate_resident
+    last = []
+
+    def keep_last(*args, **kw):
+        last[:] = [[a.clone() if torch.is_tensor(a) else a for a in args],
+                   dict(kw)]
+        return orig(*args, **kw)
+    for size in RESIDENT_SIZES:
+        n = size - workloads.edit_inserts(N_KEYS)
+        steps = [('batch', workloads.long_text_doc(n), True)] + \
+            workloads.keystroke_edits(n, N_KEYS)
+        payloads = [msgpack.packb({'doc': body}, use_bin_type=True)
+                    if kind == 'batch' else None
+                    for kind, body, _s in steps]
+        on_pool = NativeDocPool()
+        R.resolve_rank_dominate_resident = keep_last
+        try:
+            on, _, _ = drive('resident %d gpu' % size, lambda: run_stream(
+                torch, trace, on_pool, steps, payloads), need=(K1, K2))
+        finally:
+            R.resolve_rank_dominate_resident = orig
+        check_resident_counts('resident %d' % size, steps, on['counts'])
+        native.RESIDENT = False
+        try:
+            off_pool = NativeDocPool()
+            off, _, m_off = drive('resident off %d gpu' % size,
+                                  lambda: run_stream(torch, trace, off_pool,
+                                                     steps, payloads),
+                                  need=(K1, K2))
+        finally:
+            native.RESIDENT = None
+        if m_off.get('resident.dispatches', 0):
+            raise AssertionError('route off %d: the resident route ran'
+                                 % size)
+        refs = [('card pool, route off', off['results'], off_pool)]
+        if size == RESIDENT_SIZES[0]:
+            cpu_pool = NativeDocPool(device='cpu')
+            cpu = run_stream(torch, trace, cpu_pool, steps, payloads)
+            refs.append(('CPU pool', cpu['results'], cpu_pool))
+        for name, results, pool in refs:
+            bad = [i for i, (a, b) in enumerate(zip(on['results'], results))
+                   if a != b]
+            if bad:
+                raise AssertionError('resident %d: steps %s differ from the '
+                                     '%s' % (size, bad, name))
+            if pool.get_patch('doc') != on_pool.get_patch('doc'):
+                raise AssertionError('resident %d: final patch differs from '
+                                     'the %s' % (size, name))
+        text = on_pool.get_patch('doc')
+        args, kw = last
+        fn = lambda: orig(*args, **kw)  # noqa: E731
+        dispatch_ms = device_ms(torch, fn)
+        launches = count_launches(torch, fn)
+        report[size] = {'resident': edit_summary(on),
+                        'off': edit_summary(off),
+                        'dispatch_ms': dispatch_ms,
+                        'dispatch_launches': launches,
+                        'steps': len(steps)}
+        log('resident %d: %d steps, results equal to %s, final patch equal '
+            '(%d diffs); resident route %s; route off %s; one resident '
+            'dispatch (C=%d, Tp=%d) %.4f ms between CUDA events, launches '
+            '(kernels, copies) %s on %s' % (
+                size, len(steps), ' and '.join(r[0] for r in refs),
+                len(text['diffs']), json.dumps(report[size]['resident']),
+                json.dumps(report[size]['off']), args[8].shape[0],
+                args[13].shape[1], dispatch_ms, launches, card))
+    return report
+
+
 def patch_slices(buf):
     """{doc key: raw patch bytes} of a batch result map."""
     import msgpack
@@ -541,7 +743,7 @@ def run(torch):
     import msgpack
     import numpy as np
 
-    from automerge_tpu_torch import native, trace, workloads
+    from automerge_tpu_torch import native, storage, trace, workloads
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
     from automerge_tpu_torch.ops import members_kernel
@@ -708,7 +910,11 @@ def run(torch):
 
     # -- phase 3: carry-across (v1 checkpoints, CPU pool -> GPU pool) -----
     docs = [str(d) for d in range(512)]
-    blobs = {d: cpu3.save(d) for d in docs}
+    native.STORAGE_FORMAT = 'json'
+    try:
+        blobs = {d: cpu3.save(d) for d in docs}
+    finally:
+        native.STORAGE_FORMAT = 'columnar'
     pool_l = NativeDocPool()
     drive('load gpu', lambda: pool_l.load_batch(blobs), need=(K1, K2),
           waves=2)
@@ -716,6 +922,22 @@ def run(torch):
         if pool_l.get_patch(d) != cpu3.get_patch(d):
             raise AssertionError('load: doc %s patch differs' % d)
     log('load: %d v1 checkpoints replayed, patches equal' % len(docs))
+    blobs2 = {}
+    for d in docs:
+        blobs2[d] = pool3.save(d)
+        if not blobs2[d].startswith(storage.CKPT_V2_PREFIX) or \
+                blobs2[d] != cpu3.save(d):
+            raise AssertionError('v2 save: doc %s differs from the CPU '
+                                 'pool\'s' % d)
+    pool_v2 = NativeDocPool()
+    drive('load v2 gpu', lambda: pool_v2.load_batch(blobs2), need=(K1, K2),
+          waves=2)
+    for d in docs:
+        if pool_v2.get_patch(d) != cpu3.get_patch(d):
+            raise AssertionError('load v2: doc %s patch differs' % d)
+    log('v2: %d checkpoints saved on the card equal to the CPU pool\'s '
+        '(%d B), replayed in one batch, patches equal on %s'
+        % (len(docs), sum(map(len, blobs2.values())), card))
     hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed)
 
     # -- phase 4: config 5, the 64-replica catch-up backlog --------------
@@ -767,10 +989,34 @@ def run(torch):
         log('hot key %d writers: tiers %s, oracle rows %d, patch bytes '
             'equal' % (n_writers, tiers, oracle))
 
-    # -- phase 6: kernels against their plain versions on the card -------
+    # -- phase 6: the long document, resident route and route off ------
+    resident = resident_phase(torch, card, workloads, native, NativeDocPool,
+                              R, drive, K1, K2)
+
+    # -- phase 7: kernels against their plain versions on the card -------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
+    # of the long-document paths, the largest call of each kernel and the
+    # last (a keystroke); of the route-off paths the keystroke only (their
+    # build batch is the resident path's, input for input)
+    for key, size_of in (('registers', lambda c: c[1][0].numel()),
+                         ('dominance', lambda c: c[1][0].numel()
+                          * c[1][2].numel())):
+        kept, long_doc = [], {}
+        for c in captured[key]:
+            if c[0].startswith('resident'):
+                long_doc.setdefault(c[0], []).append(c)
+            else:
+                kept.append(c)
+        for path, calls in long_doc.items():
+            big = max(calls, key=size_of)
+            if not path.startswith('resident off'):
+                kept.append(big)
+            if calls[-1] is not big:
+                kept.append((path + ' keystroke',) + tuple(calls[-1][1:]))
+        captured[key] = kept
     rows = {}
+    keystroke = {}
     err1, err2 = kernel_cases(torch, np, card)
     err3 = member_cases(torch, np, card)
 
@@ -792,7 +1038,12 @@ def run(torch):
         log('registers %s T=%d W=%d: kernel %.4f ms, wrapper %.4f ms, '
             'plain %.4f ms, bound %.3g ms (%s) on %s' % (
                 path, T, window, ms, wrapper_ms, plain_ms, bound, by, card))
-        if 'registers' not in rows or T * window > rows['registers'][0]:
+        if path.startswith('resident'):
+            if not path.startswith('resident off'):
+                keystroke.setdefault(K1, {})[path] = {
+                    'shape': 'T=%d W=%d' % (T, window), 'ms': ms,
+                    'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by}
+        elif 'registers' not in rows or T * window > rows['registers'][0]:
             rows['registers'] = (T * window, {
                 'name': 'registers', 'route': 'cuda',
                 'source': 'automerge_tpu_torch/csrc/registers.cu',
@@ -818,7 +1069,12 @@ def run(torch):
         log('dominance %s O=%d L=%d T=%d: kernel %.4f ms, wrapper '
             '%.4f ms, plain %.4f ms, bound %.3g ms (%s) on %s' % (
                 path, O, L, T, ms, wrapper_ms, plain_ms, bound, by, card))
-        if 'dominance' not in rows or O * L * T > rows['dominance'][0]:
+        if path.startswith('resident'):
+            if not path.startswith('resident off'):
+                keystroke.setdefault(K2, {})[path] = {
+                    'shape': 'O=%d L=%d T=%d' % (O, L, T), 'ms': ms,
+                    'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by}
+        elif 'dominance' not in rows or O * L * T > rows['dominance'][0]:
             rows['dominance'] = (O * L * T, {
                 'name': 'dominance', 'route': 'cuda',
                 'source': 'automerge_tpu_torch/csrc/dominance.cu',
@@ -867,6 +1123,13 @@ def run(torch):
         log('members %s, all calls: kernel %.4f ms, bound %.3g ms, plain '
             '%.4f ms on %s' % (path, ms, bound, plain_ms, card))
     rows['members'][1]['path_ms'] = {p: v[0] for p, v in path_ms.items()}
+    # the resident route's calls: per size, launches per step of the
+    # stream (every step launches K1; K2 where it has list work)
+    for name, k in (('registers', K1), ('dominance', K2)):
+        rows[name][1]['resident'] = keystroke.get(k, {})
+        rows[name][1]['resident_launches_per_step'] = {
+            size: by_path[k].get('resident %d gpu' % size, 0)
+            / resident[size]['steps'] for size in resident}
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
     rows['members'][1]['max_abs_err'] = err3

@@ -25,7 +25,7 @@ import pytest
 
 from automerge_tpu import trace as jax_trace
 from automerge_tpu.native import NativeDocPool as JaxPool
-from automerge_tpu_torch import native, trace, workloads
+from automerge_tpu_torch import native, storage, trace, workloads
 from automerge_tpu_torch.native import NativeDocPool, _lib, live_batch_handles
 from automerge_tpu_torch.ops import registers as R
 from automerge_tpu_torch.ops import registers_kernel
@@ -228,6 +228,25 @@ def test_hot_key_tiers_match(n_writers, with_list, want):
     assert port.get_patch('doc') == jax_pool.get_patch('doc')
 
 
+def test_local_change_on_hot_key_climbs_the_ladder():
+    """`apply_local_change` runs the batch path: a local assignment to a
+    key that 40 concurrent writers hold goes up the escalation ladder to
+    tier 64 in both pools, with the same patch and counters."""
+    port, jax_pool = _apply_both(workloads.hot_key_batch(40))
+    trace.reset()
+    jax_trace.metrics_reset()
+    request = {'requestType': 'change', 'actor': 'local', 'seq': 1,
+               'deps': {}, 'ops': [{'action': 'set', 'obj': ROOT_ID,
+                                    'key': 'hot', 'value': 'mine'}]}
+    got = port.apply_local_change('doc', dict(request))
+    assert got == jax_pool.apply_local_change('doc', dict(request))
+    fallback = _assert_same_fallback()
+    assert fallback.get('fallback.escalated.w64', 0) > 0
+    assert 'fallback.oracle' not in fallback
+    assert len(got['diffs'][0]['conflicts']) == 40
+    assert port.get_patch('doc') == jax_pool.get_patch('doc')
+
+
 def test_oracle_docs_keep_their_place():
     """A doc whose hot key goes to the oracle, between two docs the ladder
     resolves: the result maps are equal whole, docs in payload order."""
@@ -309,7 +328,11 @@ def test_widest_sliding_window_edge(monkeypatch, n_writers, n_sets):
 
 
 def test_jax_v1_checkpoint_loads_into_port(monkeypatch):
+    """The v1 arm: both pools save v1 (AMTPU_STORAGE_FORMAT=json and the
+    port's STORAGE_FORMAT = 'json'), and the port loads the JAX pool's
+    v1 checkpoints and saves the same bytes."""
     monkeypatch.setenv('AMTPU_STORAGE_FORMAT', 'json')
+    monkeypatch.setattr(native, 'STORAGE_FORMAT', 'json')
     batch = workloads.build_config_3(random.Random(5), n_docs=6)
     jax_pool = JaxPool()
     jax_pool.apply_batch_bytes(_payload(batch))
@@ -321,6 +344,133 @@ def test_jax_v1_checkpoint_loads_into_port(monkeypatch):
         assert port.save(d) == blob
     fresh = NativeDocPool(device='cpu')
     assert fresh.load('0', blobs['0']) == jax_pool.get_patch('0')
+
+
+@pytest.mark.parametrize('config', ['config3', 'config4'])
+def test_v2_save_matches_jax(config):
+    """With no storage setting, both pools save the v2 columnar container,
+    byte for byte, and each loads the other's checkpoints."""
+    build = {'config3': workloads.build_config_3,
+             'config4': workloads.build_config_4}[config]
+    batch = build(random.Random(5), n_docs=6)
+    port, jax_pool = _apply_both([batch])
+    blobs = {}
+    for d in map(str, batch):
+        blobs[d] = port.save(d)
+        assert blobs[d] == jax_pool.save(d)
+        assert blobs[d].startswith(storage.CKPT_V2_PREFIX)
+    port2, jax2 = NativeDocPool(device='cpu'), JaxPool()
+    port2.load_batch(blobs)
+    jax2.load_batch(blobs)
+    for d, blob in blobs.items():
+        assert port2.get_patch(d) == jax2.get_patch(d) == port.get_patch(d)
+        assert port2.save(d) == jax2.save(d) == blob
+
+
+def _further_edit(doc):
+    """One more change to a config-3 doc: a new actor types into the text
+    and sets a root key."""
+    tid = 'text-%d' % doc
+    return {'actor': 'zz', 'seq': 1, 'deps': {}, 'ops': [
+        {'action': 'ins', 'obj': tid, 'key': 'a0:1', 'elem': 1000},
+        {'action': 'set', 'obj': tid, 'key': 'zz:1000', 'value': 'q'},
+        {'action': 'set', 'obj': ROOT_ID, 'key': 'title', 'value': doc}]}
+
+
+@pytest.mark.parametrize('frontier', [None, {'a0': 2, 'a3': 1}],
+                         ids=['whole', 'partial'])
+def test_jax_compacted_checkpoint_loads_into_port(frontier):
+    """Docs compacted by the JAX pool (their settled history folded into
+    snapshot chunks) load into the port, which adopts the snapshot: after
+    a further batch on both, the saves and the patches are equal."""
+    batch = workloads.build_config_3(random.Random(9), n_docs=4)
+    jax_pool = JaxPool()
+    jax_pool.apply_batch_bytes(_payload(batch))
+    for d in map(str, batch):
+        assert jax_pool.compact(d, frontier=frontier) > 0
+    blobs = {d: jax_pool.save(d) for d in map(str, batch)}
+    port = NativeDocPool(device='cpu')
+    port.load_batch(blobs)
+    for d, blob in blobs.items():
+        assert port.get_patch(d) == jax_pool.get_patch(d)
+        assert port.save(d) == blob
+        assert port._storage[d]['frontier']
+    edits = {d: [_further_edit(d)] for d in batch}
+    assert port.apply_batch_bytes(_payload(edits)) == \
+        jax_pool.apply_batch_bytes(_payload(edits))
+    for d in map(str, batch):
+        assert port.save(d) == jax_pool.save(d)
+        assert port.get_patch(d) == jax_pool.get_patch(d)
+        assert port.get_clock(d) == jax_pool.get_clock(d)
+
+
+def test_compacted_checkpoint_json_arm_is_whole_history(monkeypatch):
+    """Under STORAGE_FORMAT = 'json' a doc that adopted a snapshot saves
+    the v1 container of its whole history, snapshot first, as the JAX
+    pool does under AMTPU_STORAGE_FORMAT=json."""
+    batch = workloads.build_config_3(random.Random(4), n_docs=2)
+    jax_pool = JaxPool()
+    jax_pool.apply_batch_bytes(_payload(batch))
+    jax_pool.compact('0')
+    blob = jax_pool.save('0')
+    port = NativeDocPool(device='cpu')
+    port.load('0', blob)
+    monkeypatch.setattr(native, 'STORAGE_FORMAT', 'json')
+    monkeypatch.setenv('AMTPU_STORAGE_FORMAT', 'json')
+    v1 = port.save('0')
+    assert v1.startswith(storage.CKPT_V1_PREFIX)
+    assert v1 == jax_pool.save('0')
+
+
+def _corrupt_blobs(blob):
+    """A v2 checkpoint cut short, with a garbled tail blob, with a
+    garbled chunk, and with a tail that is not bytes."""
+    obj = msgpack.unpackb(blob, raw=False)
+    bad_tail = dict(obj, tail=obj['tail'][:8] + b'\xff' * 24)
+    bad_chunk = dict(obj, chunks=[obj['chunks'][0][:-9]])
+    no_tail = dict(obj, tail=None)
+    return [blob[:len(blob) // 2]] + [
+        msgpack.packb(o, use_bin_type=True)
+        for o in (bad_tail, bad_chunk, no_tail)]
+
+
+def test_corrupt_v2_checkpoint_raises_range_error():
+    from automerge_tpu.errors import RangeError as JaxRangeError
+    from automerge_tpu_torch.errors import RangeError
+    batch = workloads.build_config_3(random.Random(6), n_docs=1)
+    jax_pool = JaxPool()
+    jax_pool.apply_batch_bytes(_payload(batch))
+    jax_pool.compact('0', frontier={'a0': 2})
+    for bad in _corrupt_blobs(jax_pool.save('0')):
+        assert bad.startswith(storage.CKPT_V2_PREFIX)
+        port = NativeDocPool(device='cpu')
+        with pytest.raises(RangeError):
+            port.load('x', bad)
+        with pytest.raises(JaxRangeError):
+            JaxPool().load('x', bad)
+        assert port.doc_count() == 0 and live_batch_handles() == 0
+    with pytest.raises(RangeError, match='not an amtpu-doc checkpoint'):
+        NativeDocPool(device='cpu').load('x', b'\x80')
+
+
+def test_v2_load_into_live_doc_adopts_nothing():
+    """A compacted checkpoint loaded into a doc that already holds state
+    replays as no-ops and adopts no snapshot, in both pools: the doc keeps
+    its own history and saves it whole in the tail."""
+    batch = workloads.build_config_3(random.Random(8), n_docs=1)
+    src = JaxPool()
+    src.apply_batch_bytes(_payload(batch))
+    src.compact('0')
+    blob = src.save('0')
+    first = {0: batch[0][:3]}
+    port, jax_pool = _apply_both([first])
+    port.load_batch({'0': blob})
+    jax_pool.load_batch({'0': blob})
+    assert port._storage == {}
+    assert port.get_patch('0') == jax_pool.get_patch('0')
+    saved = port.save('0')
+    assert saved == jax_pool.save('0')
+    assert msgpack.unpackb(saved, raw=False)['chunks'] == []
 
 
 def test_failed_batch_rolls_back_and_frees():
