@@ -44,9 +44,19 @@ on the card between batches, only the batch's new rows and touched
 visibility cross, and the sibling sort runs on the card.
 
 Checkpoints (`save`, `load_batch`) are the v2 columnar container by
-default, byte for byte the JAX pool's; a v2 checkpoint's settled
-snapshot is adopted after the replay, so a reloaded doc keeps its
-compacted history.
+default, byte for byte the JAX pool's.  `load_batch` restores
+arena-direct (`amtpu_begin_columnar`: the blobs decode straight into
+C++ arena state, the batch resolves on the host as the JAX pool's
+does on every backend) or, with STORAGE_NATIVE = False, replays the
+decoded raw changes through the device kernels; either way a v2
+checkpoint's settled snapshot is adopted afterwards, so a reloaded doc
+keeps its compacted history.  `compact` folds a doc's settled history
+prefix into such a snapshot; the queries (`get_missing_changes`,
+`get_changes_for_actor_bytes`) splice the snapshot's changes back in
+where a requester's clock reaches behind it.
+
+After every batch's emit, C++'s stage CPU times and scheduler counts go
+into the trace (`cxx.*` spans, `sched.*` counters).
 """
 
 import ctypes
@@ -94,6 +104,22 @@ STORAGE_FORMAT = 'columnar'
 #: most actors a doc's folded clock table holds when a loaded snapshot
 #: folds its settled clocks (the JAX pool's AMTPU_FOLDCLK_MAX_ACTORS)
 FOLDCLK_MAX_ACTORS = 256
+#: fold the op records of settled changes when a snapshot is compacted
+#: or adopted (the JAX pool's AMTPU_STORAGE_FOLD)
+STORAGE_FOLD = True
+#: fold the clock vectors of settled changes likewise (the JAX pool's
+#: AMTPU_STORAGE_FOLD_CLOCKS)
+STORAGE_FOLD_CLOCKS = True
+#: snapshot chunks a doc keeps before `compact` merges them into one
+#: (the JAX pool's AMTPU_STORAGE_CHUNK_MAX; 0: never merge)
+STORAGE_CHUNK_MAX = 8
+#: `load_batch` restores arena-direct (the JAX pool's
+#: AMTPU_STORAGE_NATIVE); False replays the decoded raw changes as one
+#: batch through the device kernels
+STORAGE_NATIVE = True
+
+#: the stage CPU times amtpu_batch_trace writes, in its order
+_CXX_STAGES = ('decode', 'schedule', 'encode', 'mid', 'emit', 'domlay')
 
 # ---------------------------------------------------------------------------
 # batch handles: every successful begin is paired with exactly one free
@@ -160,6 +186,30 @@ def _up(a):
 
 def _to_host(t):
     return np.ascontiguousarray(t.cpu().numpy())
+
+
+def _cxx_trace(L, bh):
+    """The batch's C++ stage CPU times (spans `cxx.*`) and scheduler
+    counts (`sched.*`), read after its emit, as the JAX pool emits them."""
+    tr = (ctypes.c_double * len(_CXX_STAGES))()
+    L.amtpu_batch_trace(bh, tr)
+    for name, val in zip(_CXX_STAGES, tr):
+        trace.add('cxx.' + name, float(val))
+    sc = (ctypes.c_int64 * 4)()
+    L.amtpu_sched_counts(bh, sc)
+    trace.metric('sched.fast_path', int(sc[0]))
+    trace.metric('sched.queued', int(sc[1]))
+    if sc[2]:
+        trace.metric('sched.trivial_rows', int(sc[2]))
+        trace.metric('sched.trivial_groups', int(sc[3]))
+
+
+def _raw_actor_seq(raw):
+    """(raw, actor, seq) of one raw change."""
+    c = msgpack.unpackb(raw, raw=False, strict_map_key=False)
+    if not isinstance(c, dict):
+        return raw, None, None
+    return raw, c.get('actor'), c.get('seq')
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +744,12 @@ class NativeDocPool:
             self._mid(L, bh, winner, conflicts, alive, overflow, rank,
                       self._mid_window(ctx, conflicts))
             self._run_dominance(L, bh)
+        return self._emit(L, ctx)
+
+    def _emit(self, L, ctx):
+        """C++ emit, the resident arena's upkeep after it and the C++
+        stage trace; returns the patch bytes."""
+        bh = ctx['bh']
         with trace.span('host.finish'):
             if L.amtpu_finish(bh) != 0:
                 _raise_last()
@@ -702,6 +758,7 @@ class NativeDocPool:
             self._resident.sync_after_emit(L, self._pool, *ctx['resident'])
         elif self._resident.entries:
             self._mark_resident_stale(L, ctx)
+        _cxx_trace(L, bh)
         out_len = ctypes.c_int64()
         ptr = L.amtpu_result(bh, ctypes.byref(out_len))
         return ctypes.string_at(ptr, out_len.value) \
@@ -985,6 +1042,110 @@ class NativeDocPool:
         return msgpack.unpackb(self._query(lib().amtpu_get_clock, doc_id),
                                raw=False)
 
+    def get_missing_deps(self, doc_id):
+        """{actor: seq} of the changes the doc's causal queue waits on."""
+        return msgpack.unpackb(
+            self._query(lib().amtpu_get_missing_deps, doc_id), raw=False)
+
+    def _query_have(self, fn, key, have_deps):
+        have = msgpack.packb(dict(have_deps), use_bin_type=True)
+        out_len = ctypes.c_int64()
+        ptr = fn(self._pool, key.encode(), have, len(have),
+                 ctypes.byref(out_len))
+        if not ptr:
+            _raise_last()
+        return take_buf(ptr, out_len.value)
+
+    def _missing_clock(self, key, have_deps):
+        """The transitively closed {actor: from_seq} clock the C++
+        missing-changes walk serves from."""
+        return msgpack.unpackb(self._query_have(
+            lib().amtpu_get_missing_clock, key, have_deps), raw=False)
+
+    def _missing_changes_raw(self, key, have_deps):
+        return self._query_have(lib().amtpu_get_missing_changes, key,
+                                have_deps)
+
+    def get_missing_changes(self, doc_id, have_deps):
+        """The changes a requester with clock `have_deps` lacks.  A doc
+        compacted behind its settled frontier serves a requester whose
+        closure reaches into the snapshot by merging the snapshot's
+        changes with the C++ tail, in the order the walk over the whole
+        history gives."""
+        key = doc_key(doc_id)
+        st = self._storage.get(key)
+        if st and st['chunks']:
+            from_clock = self._missing_clock(key, have_deps)
+            if any(from_clock.get(a, 0) < s
+                   for a, s in st['frontier'].items()):
+                trace.metric('storage.snapshot_backfills')
+                return [msgpack.unpackb(r, raw=False, strict_map_key=False)
+                        for r in self._merged_missing_raws(key, st,
+                                                           from_clock)]
+        return msgpack.unpackb(self._missing_changes_raw(key, have_deps),
+                               raw=False)
+
+    def _snapshot_meta(self, st):
+        """(raw, actor, seq) of every change of a snapshot's chunks, in
+        application order (the C++ codec, then each raw change read)."""
+        return [_raw_actor_seq(raw) for chunk in st['chunks']
+                for raw in storage.decode_columnar(chunk)]
+
+    def _merged_missing_raws(self, key, st, from_clock):
+        """Snapshot + tail merge: per actor in first-seen application
+        order, changes with seq > from_clock[actor], seq ascending."""
+        full = self._snapshot_meta(st)
+        full += [_raw_actor_seq(raw) for raw in self._tail_raws(key)]
+        actor_order, per_actor = [], {}
+        for raw, actor, seq in full:
+            if actor not in per_actor:
+                actor_order.append(actor)
+                per_actor[actor] = []
+            per_actor[actor].append((seq, raw))
+        out = []
+        for actor in actor_order:
+            frm = from_clock.get(actor, 0)
+            out.extend(raw for seq, raw in per_actor[actor]
+                       if seq is not None and seq > frm)
+        return out
+
+    def get_register(self, doc_id, obj, key):
+        """Current field ops of one (obj, key), winner first."""
+        out_len = ctypes.c_int64()
+        ptr = lib().amtpu_get_register(
+            self._pool, doc_key(doc_id).encode(), obj.encode(),
+            key.encode(), ctypes.byref(out_len))
+        if not ptr:
+            _raise_last()
+        return msgpack.unpackb(take_buf(ptr, out_len.value), raw=False)
+
+    def get_changes_for_actor(self, doc_id, actor, after_seq=0):
+        return msgpack.unpackb(
+            self.get_changes_for_actor_bytes(doc_id, actor, after_seq),
+            raw=False)
+
+    def get_changes_for_actor_bytes(self, doc_id, actor, after_seq=0):
+        """Raw msgpack array of the actor's changes after `after_seq`:
+        the bytes replica catch-up ships.  A compacted doc splices its
+        snapshot's changes ahead of the C++ tail."""
+        key = doc_key(doc_id)
+        out_len = ctypes.c_int64()
+        ptr = lib().amtpu_get_changes_for_actor(
+            self._pool, key.encode(), actor.encode(), after_seq,
+            ctypes.byref(out_len))
+        if not ptr:
+            _raise_last()
+        buf = take_buf(ptr, out_len.value)
+        st = self._storage.get(key)
+        if not st or not st['chunks'] \
+                or after_seq >= st['frontier'].get(actor, 0):
+            return buf
+        trace.metric('storage.snapshot_backfills')
+        head = [raw for raw, a, seq in self._snapshot_meta(st)
+                if a == actor and seq is not None and seq > after_seq]
+        return storage.join_changes_array(
+            head + storage.split_changes_array(buf))
+
     # -- checkpoints ----------------------------------------------------
 
     def _tail_raws(self, doc_id):
@@ -1011,42 +1172,97 @@ class NativeDocPool:
         return storage.pack_checkpoint(st['frontier'], st['chunks'], tail)
 
     def load_batch(self, blobs):
-        """Restores many checkpoints ({doc_id: bytes}, v1 or v2) as ONE
-        batched replay through the device kernels.  A v2 checkpoint's
+        """Restores many checkpoints ({doc_id: bytes}, v1 or v2) in ONE
+        batch: arena-direct (the default, STORAGE_NATIVE) or, as the
+        second arm, one replay of the decoded raw changes through the
+        device kernels.  Both give the same state.  A v2 checkpoint's
         snapshot is adopted afterwards into docs that held no state before
         the load: a live doc keeps its own history (the replay of an
         older checkpoint is a no-op there, and its snapshot need not be a
         prefix of the doc's history)."""
-        parts = [map_header(len(blobs))]
+        keyed = {}           # doc key -> [part, ...]
+        v1_keys = set()      # docs whose one part is a raw changes array
         adopts = []
         fresh_pool = self.doc_count() == 0
         for doc_id, data in blobs.items():
             key = doc_key(doc_id)
             data = bytes(data)
             if data.startswith(storage.CKPT_V1_PREFIX):
-                body = data[len(storage.CKPT_V1_PREFIX):]
-            elif data.startswith(storage.CKPT_V2_PREFIX):
-                try:
-                    frontier, chunks, tail = \
-                        storage.unpack_checkpoint_parts(data)
-                    raws = [raw for chunk in chunks
-                            for raw in storage.decode_columnar(chunk)]
-                    raws += storage.decode_columnar(tail)
-                except ValueError as e:
-                    raise RangeError('corrupt checkpoint for %r: %s'
-                                     % (doc_id, e))
-                body = storage.join_changes_array(raws)
-                if frontier and chunks and STORAGE_FORMAT != 'json' \
-                        and (fresh_pool or not self._has_clock(doc_id)):
-                    adopts.append((key, frontier, chunks))
-            else:
+                keyed[key] = [data[len(storage.CKPT_V1_PREFIX):]]
+                v1_keys.add(key)
+                continue
+            if not data.startswith(storage.CKPT_V2_PREFIX):
                 raise RangeError('not an amtpu-doc checkpoint: %r'
                                  % (doc_id,))
-            parts.append(msgpack.packb(key, use_bin_type=True))
-            parts.append(body)
-        self.apply_batch_bytes(b''.join(parts))
+            try:
+                frontier, chunks, tail = \
+                    storage.unpack_checkpoint_parts(data)
+            except ValueError as e:
+                raise RangeError('corrupt checkpoint for %r: %s'
+                                 % (doc_id, e))
+            keyed[key] = chunks + [tail]
+            if frontier and chunks and STORAGE_FORMAT != 'json' \
+                    and (fresh_pool or not self._has_clock(doc_id)):
+                adopts.append((key, frontier, chunks))
+        if STORAGE_NATIVE:
+            try:
+                self._apply_columnar(keyed)
+            except RangeError as e:
+                raise RangeError('corrupt checkpoint (docs %s): %s'
+                                 % (sorted(keyed), e))
+        else:
+            self._replay_checkpoints(keyed, v1_keys)
         for key, frontier, chunks in adopts:
             self._adopt_snapshot(key, frontier, chunks)
+
+    def _replay_checkpoints(self, keyed, v1_keys):
+        """The replay arm: one `apply_batch_bytes` of every doc's raw
+        changes (a v1 body as it is, v2 chunks and tail decoded)."""
+        parts = [map_header(len(keyed))]
+        for key, doc_parts in keyed.items():
+            parts.append(msgpack.packb(key, use_bin_type=True))
+            if key in v1_keys:
+                parts.append(doc_parts[0])
+                continue
+            try:
+                raws = [raw for part in doc_parts
+                        for raw in storage.decode_columnar(part)]
+            except ValueError as e:
+                raise RangeError('corrupt checkpoint for %r: %s' % (key, e))
+            parts.append(storage.join_changes_array(raws))
+        self.apply_batch_bytes(b''.join(parts))
+
+    def _apply_columnar(self, keyed):
+        """One arena-direct batch (`amtpu_begin_columnar`) of {doc key:
+        [part, ...]}, each part a columnar blob or a raw msgpack changes
+        array.  C++ pins the batch host-full, so it takes its own short
+        phase (mid on the host, then emit) and no device work: the JAX
+        pool does the same on every backend."""
+        L = lib()
+        payload = msgpack.packb(keyed, use_bin_type=True)
+        with trace.span('host.begin'):
+            bh = L.amtpu_begin_columnar(self._pool, payload, len(payload))
+        if not bh:
+            _raise_last()
+        _track_begin()
+        trace.metric('storage.native_loads')
+        try:
+            dims = (ctypes.c_int64 * self.N_DIMS)()
+            L.amtpu_batch_dims(bh, dims)
+            if not dims[13]:
+                raise AssertionError('an arena-direct batch was not '
+                                     'pinned host-full')
+            with trace.span('host.mid'):
+                if L.amtpu_mid_hostreg(bh) != 0:
+                    _raise_last()
+            for key in keyed:
+                self._resident.invalidate_doc(key.encode())
+            return self._emit(L, {'bh': bh, 'dims': tuple(dims)[:9]})
+        except Exception as e:
+            _rollback_batch(bh, e)
+            raise
+        finally:
+            _free_batch(bh)
 
     def load(self, doc_id, data):
         """Restores one checkpoint; returns the doc's whole-state patch."""
@@ -1061,6 +1277,8 @@ class NativeDocPool:
         except Exception:
             return False
 
+    # -- settled-history upkeep -----------------------------------------
+
     def _adopt_snapshot(self, key, frontier, chunks):
         """Installs a loaded snapshot for doc `key`: C++ drops the history
         behind its frontier (so `save` does not repeat those changes in
@@ -1068,11 +1286,163 @@ class NativeDocPool:
         pool does after a load."""
         self._storage[key] = {'frontier': dict(frontier),
                               'chunks': list(chunks)}
-        L = lib()
-        k = key.encode()
+        self._settle(key, frontier)
+
+    def _settle(self, key, frontier):
+        """C++ drops the doc's history at or behind `frontier` and folds
+        its settled op records and clocks."""
+        self._truncate(key, frontier)
+        self._fold_settled(key, frontier)
+        self._fold_clocks(key, frontier)
+
+    def _frontier_call(self, fn, key, frontier, *extra):
         fb = msgpack.packb(dict(frontier), use_bin_type=True)
-        for fn, extra in ((L.amtpu_truncate_history, ()),
-                          (L.amtpu_fold_settled, ()),
-                          (L.amtpu_fold_clocks, (FOLDCLK_MAX_ACTORS,))):
-            if fn(self._pool, k, fb, len(fb), *extra) < 0:
-                _raise_last()
+        n = fn(self._pool, key.encode(), fb, len(fb), *extra)
+        if n < 0:
+            _raise_last()
+        return int(n)
+
+    def _truncate(self, key, frontier):
+        freed = self._frontier_call(lib().amtpu_truncate_history, key,
+                                    frontier)
+        trace.metric('storage.gc.bytes_freed', freed)
+        return freed
+
+    def _fold_settled(self, key, frontier):
+        """Frees the op records, deps and messages of the settled changes
+        at or behind `frontier` (STORAGE_FOLD)."""
+        if not frontier or not STORAGE_FOLD:
+            return 0
+        n = self._frontier_call(lib().amtpu_fold_settled, key, frontier)
+        if n:
+            trace.metric('storage.gc.ops_folded', n)
+        return n
+
+    def _fold_clocks(self, key, frontier):
+        """Moves the clock vectors of the settled changes into the doc's
+        folded clock table, up to FOLDCLK_MAX_ACTORS actors
+        (STORAGE_FOLD_CLOCKS)."""
+        if not frontier or not STORAGE_FOLD_CLOCKS:
+            return 0
+        n = self._frontier_call(lib().amtpu_fold_clocks, key, frontier,
+                                FOLDCLK_MAX_ACTORS)
+        if n:
+            trace.metric('storage.gc.clocks_folded', n)
+        return n
+
+    def compact(self, doc_id, frontier=None, min_changes=0):
+        """Folds the settled PREFIX of the doc's history into its columnar
+        snapshot and truncates the C++ history behind it.  `frontier` is
+        the settled {actor: seq} clock (None: everything applied is
+        settled); only the longest application-order prefix at or behind
+        it folds.  Returns the number of changes folded (always 0 under
+        STORAGE_FORMAT = 'json')."""
+        key = doc_key(doc_id)
+        if STORAGE_FORMAT == 'json':
+            trace.metric('storage.gc.skipped_json')
+            return 0
+        clock = self.get_clock(doc_id).get('clock') or {}
+        if not clock:
+            return 0
+        if frontier is None:
+            limit = dict(clock)
+        else:
+            limit = {}
+            for a, s in frontier.items():
+                s = min(int(s), int(clock.get(a, 0)))
+                if s > 0:
+                    limit[a] = s
+            if not limit:
+                return 0
+        fold, prefix_clock = [], {}
+        for raw, actor, seq in map(_raw_actor_seq, self._tail_raws(key)):
+            seq = seq or 0
+            if seq > limit.get(actor, 0):
+                break            # the first unsettled change ends the prefix
+            fold.append(raw)
+            prefix_clock[actor] = max(prefix_clock.get(actor, 0), seq)
+        if not fold or len(fold) < min_changes:
+            return 0
+        st = self._storage.setdefault(key, {'frontier': {}, 'chunks': []})
+        st['chunks'].append(storage.encode_columnar(fold))
+        for a, s in prefix_clock.items():
+            st['frontier'][a] = max(st['frontier'].get(a, 0), s)
+        self._settle(key, st['frontier'])
+        self._maybe_rechunk(st)
+        trace.metric('storage.gc.compactions')
+        trace.metric('storage.gc.changes_folded', len(fold))
+        return len(fold)
+
+    def _maybe_rechunk(self, st):
+        """Merges a doc's snapshot chunks into one columnar blob once it
+        holds STORAGE_CHUNK_MAX of them (0: never)."""
+        if STORAGE_CHUNK_MAX <= 0 or len(st['chunks']) < STORAGE_CHUNK_MAX:
+            return 0
+        raws = [raw for chunk in st['chunks']
+                for raw in storage.decode_columnar(chunk)]
+        st['chunks'] = [storage.encode_columnar(raws)]
+        trace.metric('storage.gc.rechunks')
+        return len(raws)
+
+    def _pool_count(self, fn, doc_id):
+        """A C++ count over one doc, or the whole pool (doc_id None)."""
+        key = '' if doc_id is None else doc_key(doc_id)
+        n = fn(self._pool, key.encode())
+        if n < 0:
+            _raise_last()
+        return int(n)
+
+    def clock_pairs(self, doc_id=None):
+        """Retained sparse clock-vector pairs, walked afresh in C++."""
+        return self._pool_count(lib().amtpu_clock_pairs, doc_id)
+
+    def op_count(self, doc_id=None):
+        """Retained op records (applied and causally queued)."""
+        return self._pool_count(lib().amtpu_op_count, doc_id)
+
+    def history_bytes(self, doc_id=None):
+        """Retained raw-change bytes in the C++ history."""
+        return self._pool_count(lib().amtpu_history_bytes, doc_id)
+
+    def resclk_row_bytes(self):
+        """Bytes of one row of the pool-resident clock table."""
+        info = (ctypes.c_int64 * 4)()
+        lib().amtpu_resclk_info(self._pool, info)
+        return int(info[1]) * 4
+
+    def drop_doc(self, doc_id):
+        """Removes the doc's whole state from the pool (save it first).
+        Returns True if the doc existed."""
+        key = doc_key(doc_id)
+        found = self._pool_count(lib().amtpu_drop_doc, doc_id)
+        self._storage.pop(key, None)
+        self._resident.invalidate_doc(key.encode())
+        return bool(found)
+
+    #: amtpu_doc_stats columns, in its order
+    DOC_STAT_COLS = ('hist_bytes', 'ops', 'folded_ops', 'changes',
+                     'queued', 'resclk_rows', 'clk_pairs',
+                     'foldclk_bytes')
+
+    def doc_stats(self):
+        """Per-doc accounting in one C call: (doc keys, int64 array of
+        shape (n_docs, len(DOC_STAT_COLS))), rows in the keys' order.
+        Column totals equal `history_bytes()` and `op_count()`."""
+        L = lib()
+        n = int(L.amtpu_doc_count(self._pool))
+        ncols = len(self.DOC_STAT_COLS)
+        if n <= 0:
+            return [], np.zeros((0, ncols), np.int64)
+        buf = (ctypes.c_int64 * (n * ncols))()
+        rows = L.amtpu_doc_stats(self._pool, buf, n * ncols)
+        if rows < 0:
+            _raise_last()
+        ln = ctypes.c_int64()
+        ptr = L.amtpu_doc_ids(self._pool, ctypes.byref(ln))
+        if not ptr:
+            _raise_last()
+        ids = msgpack.unpackb(take_buf(ptr, ln.value), raw=False)
+        rows = int(rows)
+        stats = np.frombuffer(buf, dtype=np.int64,
+                              count=rows * ncols).reshape(rows, ncols)
+        return ids[:rows], stats.copy()

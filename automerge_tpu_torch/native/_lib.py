@@ -39,6 +39,16 @@ _ABI = {
     'amtpu_last_error_kind': (_int, []),
     'amtpu_begin': (_vp, [_vp, _cp, _i64]),
     'amtpu_begin_local': (_vp, [_vp, _cp, _cp, _i64]),
+    # arena-direct checkpoint load: msgpack {doc key: [part, ...]}, each
+    # part a columnar blob or a raw changes array; the batch is pinned
+    # host-full, so mid is amtpu_mid_hostreg
+    'amtpu_begin_columnar': (_vp, [_vp, _cp, _i64]),
+    'amtpu_mid_hostreg': (_int, [_vp]),
+    # per-batch C++ stage CPU times (6 doubles: decode, schedule,
+    # encode, mid, emit, domlay) and scheduler counts (4 i64: fast-path
+    # admits, queued admits, trivial rows, trivial groups)
+    'amtpu_batch_trace': (None, [_vp, ctypes.POINTER(ctypes.c_double)]),
+    'amtpu_sched_counts': (None, [_vp, _i64p]),
     'amtpu_batch_free': (None, [_vp]),
     'amtpu_batch_rollback': (_int, [_vp]),
     'amtpu_batch_dims': (None, [_vp, _i64p]),
@@ -67,6 +77,20 @@ _ABI = {
     'amtpu_get_patch': (_u8p, [_vp, _cp, _i64p]),
     'amtpu_get_clock': (_u8p, [_vp, _cp, _i64p]),
     'amtpu_save': (_u8p, [_vp, _cp, _i64p]),
+    # queries: msgpack answers in C++-allocated buffers (take_buf);
+    # have-deps and frontiers cross as msgpack {actor: seq}
+    'amtpu_get_missing_deps': (_u8p, [_vp, _cp, _i64p]),
+    'amtpu_get_missing_clock': (_u8p, [_vp, _cp, _cp, _i64, _i64p]),
+    'amtpu_get_missing_changes': (_u8p, [_vp, _cp, _cp, _i64, _i64p]),
+    'amtpu_get_changes_for_actor': (_u8p, [_vp, _cp, _cp, _i64, _i64p]),
+    'amtpu_get_register': (_u8p, [_vp, _cp, _cp, _cp, _i64p]),
+    # storage upkeep and accounting (doc key '' = the whole pool)
+    'amtpu_history_bytes': (_i64, [_vp, _cp]),
+    'amtpu_op_count': (_i64, [_vp, _cp]),
+    'amtpu_clock_pairs': (_i64, [_vp, _cp]),
+    'amtpu_drop_doc': (_i64, [_vp, _cp]),
+    'amtpu_doc_ids': (_u8p, [_vp, _i64p]),
+    'amtpu_doc_stats': (_i64, [_vp, _i64p, _i64]),
     'amtpu_buf_free': (None, [_u8p]),
     # doc-disjoint payload split by FNV-1a doc hash (the pool's waves):
     # sub-payload buffers are owned by the split handle until its free

@@ -140,6 +140,14 @@ class ResidentCache:
             trace.metric('resident.no_upload')
         return entry
 
+    def invalidate_doc(self, doc_id):
+        """Marks every entry of `doc_id` (bytes) dirty: its arena changed
+        outside the resident route (an arena-direct load, a dropped
+        doc), so its next resident batch uploads the whole arena."""
+        for (d, _sid), entry in self.entries.items():
+            if d == doc_id:
+                entry.dirty = True
+
     def sync_after_emit(self, L, pool, entry, doc_id, obj_sid, n_now,
                         touched):
         """Visibility of the batch's touched elements (int32 element

@@ -3,7 +3,8 @@
 `metric(name, n)` adds to an always-on counter (the fallback counts
 `fallback.oracle` / `fallback.overflow_batches` and the kernel launch
 counts `launch.<kernel>` live here); `span(name)` adds the wall time of a
-block to `<name>` in the span table.  Both tables are read with
+block to `<name>` in the span table, and `add(name, seconds)` a duration
+measured elsewhere (the C++ stage times `cxx.*`).  Both tables are read with
 `snapshot()` and cleared with `reset()`.
 """
 
@@ -27,9 +28,12 @@ def span(name):
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
-        with _lock:
-            _spans[name] = _spans.get(name, 0.0) + dt
+        add(name, time.perf_counter() - t0)
+
+
+def add(name, seconds):
+    with _lock:
+        _spans[name] = _spans.get(name, 0.0) + seconds
 
 
 def snapshot():

@@ -6,9 +6,10 @@ Text editing: 4096 docs x 8 actors x 2 rounds x 16 ops per change, about
 16 rows per actor, concurrent row add/update); `build_config_5` the
 64-replica catch-up backlog (8 docs x 64 replicas x 13 changes x 15
 root-key sets, 99,840 ops, every register group wider than the member
-window).  They return {doc: [change dict, ...]} and draw from the
-`random.Random` given, in the same order as `bench.py`, so the same seed
-gives the same batch.  `hot_key_batch` makes one hot map key with many
+window; `build_config_5_replicas` also splits it by replica, as
+`bench.py::run_config_5` loads it).  They return {doc: [change dict,
+...]} and draw from the `random.Random` given, in the same order as
+`bench.py`, so the same seed gives the same batch.  `hot_key_batch` makes one hot map key with many
 concurrent writers, the shape that climbs the escalation ladder.
 `long_text_doc` and `keystroke_edits` are a long text document and the
 edits a collaborative editor sends to it, one keystroke per batch (the
@@ -113,13 +114,16 @@ def build_config_4(rng, n_docs=1024, rows_per_actor=16, n_actors=N_ACTORS):
     return batch
 
 
-def build_config_5(rng, n_docs=8, n_replicas=64, n_changes=13,
-                   ops_per_change=15):
-    """The 64-replica catch-up backlog of bench config 5 as ONE batch:
-    every replica authors one actor's stream of `n_changes` changes per
-    doc, each setting `ops_per_change` distinct root keys drawn from 64
-    (no deps: all replicas are concurrent).  Returns the union backlog
-    {doc: [change, ...]} (99,840 ops at the defaults)."""
+def build_config_5_replicas(rng, n_docs=8, n_replicas=64, n_changes=13,
+                            ops_per_change=15):
+    """The backlog of bench config 5 as the bench runs it: every replica
+    authors one actor's stream of `n_changes` changes per doc, each
+    setting `ops_per_change` distinct root keys drawn from 64 (no deps:
+    all replicas are concurrent).  Returns (by_replica, union):
+    by_replica[r] is replica r's own {doc: [change, ...]}, union the
+    whole backlog {doc: [change, ...]} (99,840 ops at the defaults; a
+    full catch-up applies each op at the 63 other replicas)."""
+    by_replica = [dict() for _ in range(n_replicas)]
     union = {d: [] for d in range(n_docs)}
     key_space = range(max(64, ops_per_change))
     for d in range(n_docs):
@@ -130,9 +134,19 @@ def build_config_5(rng, n_docs=8, n_replicas=64, n_changes=13,
                         'value': '%s-%d-%d' % (actor, seq, i)}
                        for i, k in enumerate(
                            rng.sample(key_space, ops_per_change))]
-                union[d].append({'actor': actor, 'seq': seq, 'deps': {},
-                                 'ops': ops})
-    return union
+                ch = {'actor': actor, 'seq': seq, 'deps': {}, 'ops': ops}
+                by_replica[r].setdefault(d, []).append(ch)
+                union[d].append(ch)
+    return by_replica, union
+
+
+def build_config_5(rng, n_docs=8, n_replicas=64, n_changes=13,
+                   ops_per_change=15):
+    """The union backlog of `build_config_5_replicas` as ONE batch
+    {doc: [change, ...]}: every register group wider than the member
+    window."""
+    return build_config_5_replicas(rng, n_docs, n_replicas, n_changes,
+                                   ops_per_change)[1]
 
 
 def hot_key_batch(n_writers, with_list=True):

@@ -19,25 +19,35 @@ port's C++ host runtime and its three CUDA kernels from this checkout
   2. applies the map-only batch (bench config 4: 1024 Table docs) the
      same way, in two waves: K1 must have launched;
   3. loads v1 checkpoints saved by the CPU pool into a card pool as one
-     batched replay in two waves: every doc's patch must equal the CPU
-     pool's; saves the same docs from the config-3 card pool as v2
-     checkpoints (the default): the bytes must equal the CPU pool's
-     saves, and a fresh card pool loads them in one batch of two waves
-     with every patch equal to the CPU pool's; then applies a pipelined
-     batch of 256 docs with every private host array overwritten as
-     soon as its upload returned (hostile staging): the bytes must
-     still equal the CPU pool's;
+     batched replay in two waves (the replay arm, STORAGE_NATIVE =
+     False): every doc's patch must equal the CPU pool's; saves the
+     same docs from the config-3 card pool as v2 checkpoints (the
+     default): the bytes must equal the CPU pool's saves, and a fresh
+     card pool replays them in one batch of two waves with every patch
+     equal to the CPU pool's; loads both sets again arena-direct (the
+     default `load_batch`, host-resolved in C++): patches, clocks and
+     `doc_stats` rows must equal the replay arm's; then applies a
+     pipelined batch of 256 docs with every private host array
+     overwritten as soon as its upload returned (hostile staging): the
+     bytes must still equal the CPU pool's;
   4. applies the 64-replica catch-up backlog (bench config 5: 8 docs x
      64 replicas x 13 changes x 15 ops, 99,840 ops, every register group
      wider than the member window) as ONE batch: K3 must have launched
      for the base window and at least one escalation tier, no row may
      take the oracle, and the bytes must equal a CPU pool's;
-  5. applies one hot map key beside a list object with 40, 200 and 300
+  5. runs config 5 as the bench runs it: a `BatchedReplicaSet` of 64
+     card pools, each loading its own replica's backlog, then the full
+     catch-up (every receiver's batch of the 63 other replicas'
+     changes, 6,289,920 op-applications, delivered pipelined across the
+     pools): K3 must launch, no row may take the oracle (the JAX set's
+     count), the set must converge and every replica's tree of every
+     doc must equal phase 4's union pool's;
+  6. applies one hot map key beside a list object with 40, 200 and 300
      concurrent writers: the first two climb to tiers 64 and 256 with no
      oracle row (K3 and K2 launch), the third is over the scratch budget
      and all 300 rows take the oracle, as in the JAX package; the bytes
      must equal a CPU pool's in each case;
-  6. edits a long text document (`workloads.long_text_doc`, then
+  7. edits a long text document (`workloads.long_text_doc`, then
      `workloads.keystroke_edits`: keystrokes one per batch, a delete, a
      concurrent insert, an actor that sorts between two known ones, a
      local change and its undo, a batch that also fills a second list)
@@ -47,9 +57,10 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      row, the whole arena may cross only at the first batch and after
      the two invalidations, K1 and K2 must launch, and every result
      must equal that of a CPU pool (32,768) and of a card pool with the
-     route off (both sizes); prints the per-edit wall time, spans and
-     counters of both routes, and times one resident dispatch alone;
-  7. holds each kernel against its plain PyTorch version on the card,
+     route off (both sizes); prints the per-edit wall time, spans (the
+     C++ stage times `cxx.*` among them) and counters of both routes,
+     and times one resident dispatch alone;
+  8. holds each kernel against its plain PyTorch version on the card,
      bit-equal (integer outputs, tolerance 0), at the inputs the main
      paths gave it, at random shapes and at the edges of each design
      (register groups of exactly W and W + 1 rows across tile edges;
@@ -59,7 +70,9 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      same-seq duplicates, deletes winning, one actor, tier chunks with
      groups of 1, W, W + 1 and 71 rows, repeated members, indexes
      clipped at T and a group too long for a block's span), and times
-     kernel and plain version with CUDA events beside each call's bound.
+     kernel and plain version with CUDA events beside each call's bound
+     (of the 64-pool catch-up, every call is held bit-equal and the
+     first receiver's calls are timed).
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -87,8 +100,14 @@ H100_INT_OPS_PER_S = 67e12          # non-tensor 32-bit rate (fp32 entry)
 RESIDENT_SIZES = (32768, 262144)
 N_KEYS = 24
 TIMED_EDITS = slice(3, 1 + N_KEYS)
+CXX_SPANS = ('cxx.decode', 'cxx.schedule', 'cxx.encode', 'cxx.mid',
+             'cxx.emit', 'cxx.domlay')
 EDIT_SPANS = ('host.begin', 'device.dispatch', 'device.collect', 'host.mid',
-              'host.finish')
+              'host.finish') + CXX_SPANS
+#: the 64-pool catch-up's driven path, whose kernel calls are all held
+#: bit-equal but timed only for the first receiver
+CATCH_UP = 'config5 catch-up gpu'
+N_REPLICAS = 64
 RESIDENT_COUNTERS = ('resident.dispatches', 'resident.full_upload_rows',
                      'resident.delta_upload_rows', 'resident.no_upload',
                      'resident.actor_invalidation',
@@ -365,9 +384,11 @@ def check_dominance(torch, card, label, args, chunk=64):
     return err, ms
 
 
-def check_members(torch, card, label, args, window, want_vb=True):
-    """Bit-equality of the member kernel with its plain version, and the
-    kernel's own time; returns (max abs error, ms, bound ms, bound by)."""
+def check_members(torch, card, label, args, window, want_vb=True,
+                  timed=True):
+    """Bit-equality of the member kernel with its plain version, and
+    (`timed`) the kernel's own time; returns (max abs error, ms, bound
+    ms, bound by), the last three None when not timed."""
     from automerge_tpu_torch.ops import _build, members_kernel
     from automerge_tpu_torch.ops import registers as R
     kw = dict(window=window, want_visible_before=want_vb)
@@ -379,6 +400,10 @@ def check_members(torch, card, label, args, window, want_vb=True):
     bad = sum(int((got[k] != want[k]).sum()) for k in want)
     err = max(int((got[k].long() - want[k].long()).abs().max())
               if want[k].numel() else 0 for k in want)
+    if not timed:
+        if bad:
+            raise AssertionError('members %s: %d mismatches' % (label, bad))
+        return err, None, None, None
     ms = device_ms(torch, members_launcher(torch, _build, args, window,
                                            want_vb))
     bound, by = members_bound(torch, args, window, want['alive_after'],
@@ -550,21 +575,25 @@ def check_resident_counts(label, steps, counts):
 
 
 def edit_summary(run_out):
-    """Median per-edit wall (ms) and spans (ms) over the timed edits,
-    and the stream's counters."""
+    """Median per-edit wall (ms) and spans (ms) over the timed edits, the
+    mean per edit of the C++ stage times (a thread CPU clock that may
+    advance in coarse steps, so a median of a few ms reads 0) and the
+    stream's counters."""
     def med(xs):
         xs = sorted(xs)
         return xs[len(xs) // 2] * 1e3
     walls = run_out['wall'][TIMED_EDITS]
-    spans = {k: med([s.get(k, 0.0) for s in run_out['spans'][TIMED_EDITS]])
-             for k in EDIT_SPANS}
+    timed = run_out['spans'][TIMED_EDITS]
+    spans = {k: med([s.get(k, 0.0) for s in timed]) for k in EDIT_SPANS}
+    cxx_mean = {k: sum(s.get(k, 0.0) for s in timed) / len(timed) * 1e3
+                for k in CXX_SPANS}
     counts = {}
     for c in run_out['counts']:
         for k in RESIDENT_COUNTERS:
             if c.get(k):
                 counts[k] = counts.get(k, 0) + c[k]
     return {'edits': len(walls), 'wall_ms': med(walls), 'spans_ms': spans,
-            'counters': counts}
+            'cxx_mean_ms': cxx_mean, 'counters': counts}
 
 
 def resident_phase(torch, card, workloads, native, NativeDocPool, R, drive,
@@ -645,6 +674,79 @@ def resident_phase(torch, card, workloads, native, NativeDocPool, R, drive,
                 json.dumps(report[size]['off']), args[8].shape[0],
                 args[13].shape[1], dispatch_ms, launches, card))
     return report
+
+
+def arms_equal(np, label, direct, replayed, docs):
+    """Patches, clocks and doc_stats rows of an arena-direct load equal
+    those of the replay arm.  `resclk_rows` counts rows of the pool-
+    resident clock table, which only the replay's device route stages:
+    0 on the direct arm.  Rows compare per doc: a pool lists its docs in
+    first-seen order, which the replay's waves change."""
+    for d in docs:
+        for name in ('get_patch', 'get_clock'):
+            if getattr(direct, name)(d) != getattr(replayed, name)(d):
+                raise AssertionError('%s: doc %s %s differs from the replay '
+                                     'arm' % (label, d, name))
+    (ids_d, st_d), (ids_r, st_r) = direct.doc_stats(), replayed.doc_stats()
+    col = direct.DOC_STAT_COLS.index('resclk_rows')
+    keep = [i for i in range(st_d.shape[1]) if i != col]
+    st_r = st_r[[ids_r.index(d) for d in ids_d]] \
+        if sorted(ids_d) == sorted(ids_r) else None
+    if st_r is None or not np.array_equal(st_d[:, keep], st_r[:, keep]) \
+            or st_d[:, col].any():
+        raise AssertionError('%s: doc_stats differ from the replay arm'
+                             % label)
+
+
+def replica_phase(torch, card, workloads, drive, K1, K3, union_pool):
+    """Phase 5: bench config 5 uncut (`bench.py::run_config_5`, the same
+    rng draws as phase 4's union batch): a BatchedReplicaSet of 64 card
+    pools loads each replica's own backlog, then catches up.  The set
+    must converge with no oracle row, and every replica's tree of every
+    doc must equal that of `union_pool` (phase 4's pool, whose bytes
+    equal the CPU pool's)."""
+    from automerge_tpu_torch.sync.replica_set import BatchedReplicaSet, \
+        patch_to_tree
+    by_replica, union = workloads.build_config_5_replicas(random.Random(7))
+    backlog = workloads.op_count(union)
+    applications = backlog * (N_REPLICAS - 1)
+    rs = BatchedReplicaSet(N_REPLICAS)
+    _, wall_load, m_load = drive('config5 replicas load gpu', lambda: [
+        rs.apply_batch(r, by_doc) for r, by_doc in enumerate(by_replica)],
+        need=())
+    if rs.converged():
+        raise AssertionError('config5 replicas: converged before catch-up')
+    rounds, wall, m = drive(CATCH_UP, rs.catch_up, need=(K3,))
+    n_changes = sum(len(chs) for chs in union.values())
+    if not rs.converged() or rounds[-1] != 0 or \
+            sum(rounds) != n_changes * (N_REPLICAS - 1):
+        raise AssertionError('config5 catch-up: not converged or not every '
+                             'change shipped once per receiver (rounds %s)'
+                             % rounds)
+    for d in union:
+        want = patch_to_tree(union_pool.get_patch(str(d)))
+        for r, pool in enumerate(rs.replicas):
+            if patch_to_tree(pool.get_patch(d)) != want:
+                raise AssertionError('config5 catch-up: replica %d doc %d '
+                                     'differs from the union pool' % (r, d))
+    keys = (('launch.members', 'launch.registers') +
+            tuple(k for k in sorted(m) if k.startswith('fallback.')) +
+            EDIT_SPANS + ('collect.ready_reorder', 'collect.wait_in_order',
+                          'sched.fast_path', 'sched.queued',
+                          'sched.trivial_rows', 'ops.register_rows'))
+    log('config5 catch-up: ' + json.dumps({
+        'replicas': N_REPLICAS, 'docs': len(union), 'backlog_ops': backlog,
+        'op_applications': applications, 'rounds': rounds,
+        'catch_up_s': wall, 'op_applications_per_s': applications / wall,
+        'load_s': wall_load, 'load_trivial_rows': m_load.get(
+            'sched.trivial_rows', 0), 'load_register_rows': m_load.get(
+            'ops.register_rows', 0), 'load_launch_registers': m_load.get(
+            K1, 0), 'counts': {k: m.get(k, 0) for k in keys},
+        'card': card}))
+    log('config5 catch-up: %d replicas converged in %d rounds, every '
+        'replica\'s tree of every doc equal to the union pool\'s; %.3f s, '
+        '%.0f op-applications/s on %s' % (
+            N_REPLICAS, len(rounds), wall, applications / wall, card))
 
 
 def patch_slices(buf):
@@ -805,7 +907,7 @@ def run(torch):
         wall = time.perf_counter() - t
         current['path'] = None
         snap = trace.snapshot()
-        m = snap['metrics']
+        m = dict(snap['spans'], **snap['metrics'])
         got = {k: int(m.get(k, 0)) for k in (K1, K2, K3)}
         for k in need:
             if got[k] == 0:
@@ -916,8 +1018,12 @@ def run(torch):
     finally:
         native.STORAGE_FORMAT = 'columnar'
     pool_l = NativeDocPool()
-    drive('load gpu', lambda: pool_l.load_batch(blobs), need=(K1, K2),
-          waves=2)
+    native.STORAGE_NATIVE = False
+    try:
+        _, wall_l, _ = drive('load gpu', lambda: pool_l.load_batch(blobs),
+                             need=(K1, K2), waves=2)
+    finally:
+        native.STORAGE_NATIVE = True
     for d in docs:
         if pool_l.get_patch(d) != cpu3.get_patch(d):
             raise AssertionError('load: doc %s patch differs' % d)
@@ -930,14 +1036,30 @@ def run(torch):
             raise AssertionError('v2 save: doc %s differs from the CPU '
                                  'pool\'s' % d)
     pool_v2 = NativeDocPool()
-    drive('load v2 gpu', lambda: pool_v2.load_batch(blobs2), need=(K1, K2),
-          waves=2)
+    native.STORAGE_NATIVE = False
+    try:
+        _, wall_v2, _ = drive('load v2 gpu', lambda: pool_v2.load_batch(
+            blobs2), need=(K1, K2), waves=2)
+    finally:
+        native.STORAGE_NATIVE = True
     for d in docs:
         if pool_v2.get_patch(d) != cpu3.get_patch(d):
             raise AssertionError('load v2: doc %s patch differs' % d)
     log('v2: %d checkpoints saved on the card equal to the CPU pool\'s '
         '(%d B), replayed in one batch, patches equal on %s'
         % (len(docs), sum(map(len, blobs2.values())), card))
+    for label, blobs_x, replayed, wall_r in (
+            ('load direct gpu', blobs, pool_l, wall_l),
+            ('load v2 direct gpu', blobs2, pool_v2, wall_v2)):
+        pool_d = NativeDocPool()
+        _, wall_d, m_d = drive(label, lambda p=pool_d, b=blobs_x:
+                               p.load_batch(b), need=())
+        arms_equal(np, label, pool_d, replayed, docs)
+        log('%s: %d checkpoints arena-direct in %.4f s against %.4f s '
+            'replayed (two waves, K1 + K2); patches, clocks and doc_stats '
+            'equal to the replay arm\'s; cxx %s on %s' % (
+                label, len(docs), wall_d, wall_r,
+                {k: round(m_d.get(k, 0.0), 4) for k in CXX_SPANS}, card))
     hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed)
 
     # -- phase 4: config 5, the 64-replica catch-up backlog --------------
@@ -967,7 +1089,10 @@ def run(torch):
             {k: v for k, v in sorted(m5.items())
              if k.startswith('fallback.')}, n_ops5 / wall5, card))
 
-    # -- phase 5: one hot key beside a list, three widths ----------------
+    # -- phase 5: config 5 as the bench runs it, 64 replica pools --------
+    replica_phase(torch, card, workloads, drive, K1, K3, pool5)
+
+    # -- phase 6: one hot key beside a list, three widths ----------------
     for n_writers, tier, oracle in ((40, 64, 0), (200, 256, 0),
                                     (300, None, 300)):
         payloads = [packed(b) for b in workloads.hot_key_batch(n_writers)]
@@ -989,11 +1114,11 @@ def run(torch):
         log('hot key %d writers: tiers %s, oracle rows %d, patch bytes '
             'equal' % (n_writers, tiers, oracle))
 
-    # -- phase 6: the long document, resident route and route off ------
+    # -- phase 7: the long document, resident route and route off ------
     resident = resident_phase(torch, card, workloads, native, NativeDocPool,
                               R, drive, K1, K2)
 
-    # -- phase 7: kernels against their plain versions on the card -------
+    # -- phase 8: kernels against their plain versions on the card -------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
     # of the long-document paths, the largest call of each kernel and the
@@ -1085,14 +1210,24 @@ def run(torch):
                 'wrapper_ms': wrapper_ms,
                 'shape': 'O=%d L=%d T=%d chunk=%d' % (O, L, T, chunk)})
     path_ms = {}
+    base_passes = {}
+    untimed = 0
     for path, args, kw in captured['members']:
         window = kw.get('window', R.WINDOW)
         want_vb = kw.get('want_visible_before', True)
         T = args[0].numel()
+        # of the catch-up, the first receiver's calls (its base pass and
+        # the tier chunks after it) are timed; every call is checked
+        if window == R.WINDOW:
+            base_passes[path] = base_passes.get(path, 0) + 1
+        timed = path != CATCH_UP or base_passes.get(path, 0) <= 1
         e, ms, bound, by = check_members(
             torch, card, 'main path %s T=%d W=%d' % (path, T, window), args,
-            window, want_vb)
+            window, want_vb, timed=timed)
         err3 = max(err3, e)
+        if not timed:
+            untimed += 1
+            continue
         wrapper_ms = device_ms(torch, lambda: members_kernel
                                .resolve_registers_members_cuda(
                                    *args, window=window,
@@ -1120,8 +1255,13 @@ def run(torch):
                 'wrapper_ms': wrapper_ms, 'shape': 'T=%d W=%d A=%d' % (
                     T, window, args[5].shape[1])})
     for path, (ms, bound, plain_ms) in sorted(path_ms.items()):
-        log('members %s, all calls: kernel %.4f ms, bound %.3g ms, plain '
-            '%.4f ms on %s' % (path, ms, bound, plain_ms, card))
+        log('members %s, all timed calls: kernel %.4f ms, bound %.3g ms, '
+            'plain %.4f ms on %s' % (path, ms, bound, plain_ms, card))
+    log('members %s: %d calls of %d receivers bit-equal to the plain '
+        'version, the first receiver\'s timed above, on %s' % (
+            CATCH_UP, sum(1 for c in captured['members']
+                          if c[0] == CATCH_UP),
+            base_passes.get(CATCH_UP, 0), card))
     rows['members'][1]['path_ms'] = {p: v[0] for p, v in path_ms.items()}
     # the resident route's calls: per size, launches per step of the
     # stream (every step launches K1; K2 where it has list work)

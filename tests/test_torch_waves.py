@@ -70,9 +70,10 @@ def test_result_bytes_equal_whole(depth, workload, monkeypatch):
 @pytest.mark.parametrize('depth', [1, 2, 4], indirect=True)
 def test_load_batch_bytes_equal_whole(depth, monkeypatch):
     """80 v1 checkpoints restored as one batch: the result map of the
-    replay is equal as a whole (the JAX pool on its dict-replay route,
-    which hands apply_batch_bytes the same spliced payload)."""
+    replay is equal as a whole (both pools on their replay route, which
+    hands apply_batch_bytes the same spliced payload)."""
     monkeypatch.setenv('AMTPU_STORAGE_NATIVE', '0')
+    monkeypatch.setattr(native, 'STORAGE_NATIVE', False)
     src = NativeDocPool(device='cpu')
     batch = workloads.build_config_3(random.Random(11), n_docs=80)
     src.apply_batch_bytes(_payload(batch))
