@@ -57,9 +57,23 @@ where a requester's clock reaches behind it.
 
 After every batch's emit, C++'s stage CPU times and scheduler counts go
 into the trace (`cxx.*` spans, `sched.*` counters).
+
+The dict API (`apply_batch`, `apply_changes`) goes through the
+resilience layer (`automerge_tpu_torch.resilience`): an infrastructure
+failure is retried, bisected and at worst quarantined as one doc's
+error envelope while every healthy doc commits.  The fault sites of
+`automerge_tpu_torch.faults` sit where the JAX pool has them.
+
+`ShardedNativePool` spreads docs over independent pools by the C++ FNV
+doc hash, driven pipelined (phase a of every shard, then phase b ready-
+first) or with one thread per shard (the C++ stages release the GIL);
+`restore_from_store` restores a `ColdStore`'s docs onto any pool, one
+worker per base pool.
 """
 
+import concurrent.futures
 import ctypes
+import os
 import threading
 import time
 
@@ -67,7 +81,7 @@ import msgpack
 import numpy as np
 import torch
 
-from .. import storage, trace
+from .. import faults, resilience, storage, trace
 from ..errors import AutomergeError, RangeError
 from ..ops import list_rank
 from ..ops import registers as register_ops
@@ -117,6 +131,15 @@ STORAGE_CHUNK_MAX = 8
 #: AMTPU_STORAGE_NATIVE); False replays the decoded raw changes as one
 #: batch through the device kernels
 STORAGE_NATIVE = True
+#: the drive mode of a `ShardedNativePool` built without one
+#: ('pipeline' | 'threads'; None: pipeline on a one-core host, threads
+#: elsewhere; the JAX pool's AMTPU_SHARD_MODE)
+SHARD_MODE = None
+#: restore fan-out of `restore_from_store` (0: one worker per core, at
+#: most 8; 1: serial; the JAX pool's AMTPU_RESTORE_THREADS)
+RESTORE_THREADS = 0
+#: docs per restore batch within one base pool (AMTPU_RESTORE_BATCH)
+RESTORE_BATCH = 8192
 
 #: the stage CPU times amtpu_batch_trace writes, in its order
 _CXX_STAGES = ('decode', 'schedule', 'encode', 'mid', 'emit', 'domlay')
@@ -204,6 +227,18 @@ def _cxx_trace(L, bh):
         trace.metric('sched.trivial_groups', int(sc[3]))
 
 
+def _batch_docs(bh, payload):
+    """Doc keys of a begun batch, for pinning armed faults (the
+    disarmed path never calls this)."""
+    if isinstance(payload, tuple):
+        head = ctypes.string_at(payload[0], min(payload[1], 16))
+    else:
+        head = bytes(payload[:16])
+    L = lib()
+    return [L.amtpu_batch_doc_id(bh, i).decode()
+            for i in range(read_map_header(head)[0])]
+
+
 def _raw_actor_seq(raw):
     """(raw, actor, seq) of one raw change."""
     c = msgpack.unpackb(raw, raw=False, strict_map_key=False)
@@ -277,6 +312,24 @@ def apply_payloads_pipelined(pools_payloads):
         raise errors[0]
 
 
+def _pool_device(device):
+    """The torch device a pool runs on: CUDA when `device` is None (and
+    an error when there is none), else `device`, which must be cuda or
+    cpu."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'NativeDocPool() runs on CUDA and no CUDA device is '
+                'available; pass device="cpu" for the plain PyTorch '
+                'versions of the kernels')
+        device = 'cuda'
+    device = torch.device(device)
+    if device.type not in ('cuda', 'cpu'):
+        raise ValueError('NativeDocPool runs on cuda or cpu, not %s'
+                         % device)
+    return device
+
+
 class NativeDocPool:
     """C++ host runtime + the port's device kernels on one device."""
 
@@ -286,17 +339,7 @@ class NativeDocPool:
     N_DIMS = 14
 
     def __init__(self, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    'NativeDocPool() runs on CUDA and no CUDA device is '
-                    'available; pass device="cpu" for the plain PyTorch '
-                    'versions of the kernels')
-            device = 'cuda'
-        self.device = torch.device(device)
-        if self.device.type not in ('cuda', 'cpu'):
-            raise ValueError('NativeDocPool runs on cuda or cpu, not %s'
-                             % self.device)
+        self.device = _pool_device(device)
         L = lib()
         self._pool = L.amtpu_pool_new()
         # the port is the kernel path on both devices: C++ never takes
@@ -309,7 +352,8 @@ class NativeDocPool:
         self._storage = {}
 
     def __del__(self):
-        L = loaded()
+        # at interpreter shutdown this module's globals may be gone
+        L = loaded() if loaded is not None else None
         if getattr(self, '_pool', None) and L is not None:
             L.amtpu_pool_free(self._pool)
             self._pool = None
@@ -327,7 +371,10 @@ class NativeDocPool:
                 docs = read_map_header(payload)[0]
             except (ValueError, IndexError):
                 pass    # malformed: C++ begin raises its typed error
-        if docs >= max(2, PIPELINE_MIN_DOCS) and PIPELINE_DEPTH >= 2:
+        # armed faults pin exact single-batch rollback semantics: no waves,
+        # as in the JAX pool
+        if docs >= max(2, PIPELINE_MIN_DOCS) and PIPELINE_DEPTH >= 2 \
+                and not faults.ARMED:
             try:
                 return self._apply_waves(payload, docs)
             except Exception as e:
@@ -337,12 +384,13 @@ class NativeDocPool:
             # raises a multi-error payload's FIRST error in application
             # order, whatever the waves' hash order
             trace.metric('pipeline.serial_replay')
-        return self._run_batch(self._begin(payload))
+        return self._run_batch(*self._begin(payload))
 
     def _begin(self, payload):
         """C++ begin over msgpack bytes or a (ctypes pointer, length) pair
-        (a wave's buffer, passed without a copy: begin copies what it
-        keeps).  Returns the tracked batch handle."""
+        (a wave's or shard's buffer, passed without a copy: begin copies
+        what it keeps).  Returns (the tracked batch handle, the batch's
+        doc keys when faults are armed, else None)."""
         data, n = payload if isinstance(payload, tuple) else \
             (payload, len(payload))
         with trace.span('host.begin'):
@@ -350,14 +398,29 @@ class NativeDocPool:
         if not bh:
             _raise_last()
         _track_begin()
-        return bh
+        fault_docs = None
+        if faults.ARMED:
+            fault_docs = _batch_docs(bh, payload)
+            self._fire_begin(bh, fault_docs)
+        return bh, fault_docs
+
+    @staticmethod
+    def _fire_begin(bh, fault_docs):
+        """The `native.begin` site: a fault there leaves the pool as a
+        failed begin would, rolled back and the handle freed."""
+        try:
+            faults.fire('native.begin', fault_docs)
+        except Exception as e:
+            _rollback_batch(bh, e)
+            _free_batch(bh)
+            raise
 
     def _start(self, payload):
         """Begin + phase a; a phase-a failure rolls the batch back and
         frees it.  Returns the context phase b takes."""
-        bh = self._begin(payload)
+        bh, fault_docs = self._begin(payload)
         try:
-            return self._phase_a(bh)
+            return self._phase_a(bh, fault_docs)
         except Exception as e:
             _rollback_batch(bh, e)
             _free_batch(bh)
@@ -439,14 +502,17 @@ class NativeDocPool:
         if not bh:
             _raise_last()
         _track_begin()
-        out = self._run_batch(bh)
+        fault_docs = [key] if faults.ARMED else None
+        if fault_docs:
+            self._fire_begin(bh, fault_docs)
+        out = self._run_batch(bh, fault_docs)
         return msgpack.unpackb(out, raw=False, strict_map_key=False)[key]
 
-    def _run_batch(self, bh):
+    def _run_batch(self, bh, fault_docs=None):
         """Phase a + b over a begun batch, unpipelined; rolls back on
         failure and always frees the handle."""
         try:
-            ctx = self._phase_a(bh)
+            ctx = self._phase_a(bh, fault_docs)
             return self._phase_b(ctx)
         except Exception as e:
             _rollback_batch(bh, e)
@@ -459,12 +525,13 @@ class NativeDocPool:
         C++ buffers never back a tensor (they are freed with the batch)."""
         return register_ops.upload(np.array(view, dtype=dtype), self.device)
 
-    def _phase_a(self, bh):
+    def _phase_a(self, bh, fault_docs=None):
         """Reads the batch dims and dispatches the device work; the
         context's `event` is recorded after the last enqueue, whatever the
-        route (None on the CPU)."""
+        route (None on the CPU).  `fault_docs` are the doc keys armed
+        faults pin to."""
         L = lib()
-        ctx = {'bh': bh, 'event': None}
+        ctx = {'bh': bh, 'event': None, 'fault_docs': fault_docs}
         dims = (ctypes.c_int64 * self.N_DIMS)()
         L.amtpu_batch_dims(bh, dims)
         (T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp, use_members,
@@ -511,6 +578,8 @@ class NativeDocPool:
             ctx['ctab_dev'] = self._resclk.table(L, self._pool)
         elif not res_clock:
             self._resclk.drop_if_disabled(L, self._pool)
+        if faults.ARMED:
+            faults.fire('device.dispatch', fault_docs)
         with trace.span('device.dispatch'):
             if fused_ok:
                 self._dispatch_fused(L, ctx, Tp, Ap, CTp, Lp, max_obj,
@@ -670,6 +739,14 @@ class NativeDocPool:
         """Collect device results, run host mid + emit, return patch bytes."""
         L = lib()
         bh = ctx['bh']
+        if faults.ARMED:
+            # both sites fire before their phase mutates anything, so a
+            # rollback and re-apply reproduce the fault-free bytes.  The
+            # kernels phase a enqueued may still be running: every device
+            # input is a private copy (`ops.registers.upload`), so the
+            # C++ batch may be rolled back and freed under them
+            faults.fire('device.collect', ctx['fault_docs'])
+            faults.fire('native.mid', ctx['fault_docs'])
         T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp = ctx['dims']
         if ctx['mode'] == 'fused':
             with trace.span('device.collect'):
@@ -1013,18 +1090,59 @@ class NativeDocPool:
                     chunk=64)).astype(np.int32)
                 L.amtpu_dom_set_indexes(bh, blk, _ip(idx))
 
+    # -- the degraded route ---------------------------------------------
+
+    def _apply_host_full(self, payload):
+        """One batch on the C++ full host path of this pool: registers and
+        list indexes resolve in C++ (mid through `amtpu_mid_hostreg`, then
+        emit), nothing is uploaded and no kernel runs.  Only the
+        resilience layer's degraded route (`resilience.DEGRADE`) takes it,
+        for one poisoned doc, as the JAX pool's `_apply_degraded` does.
+        The batch's docs' resident entries are marked stale after."""
+        L = lib()
+        L.amtpu_pool_set_hostfull(self._pool, 1)
+        try:
+            bh, fault_docs = self._begin(payload)
+        finally:
+            L.amtpu_pool_set_hostfull(self._pool, 0)
+        try:
+            dims = (ctypes.c_int64 * self.N_DIMS)()
+            L.amtpu_batch_dims(bh, dims)
+            if not dims[13]:
+                raise AssertionError('a degraded batch was not pinned '
+                                     'host-full')
+            if faults.ARMED:
+                faults.fire('native.mid', fault_docs)
+            with trace.span('host.mid'):
+                if L.amtpu_mid_hostreg(bh) != 0:
+                    _raise_last()
+            for key in _batch_docs(bh, payload):
+                self._resident.invalidate_doc(key.encode())
+            return self._emit(L, {'bh': bh, 'dims': tuple(dims)[:9]})
+        except Exception as e:
+            _rollback_batch(bh, e)
+            raise
+        finally:
+            _free_batch(bh)
+
     # -- dict-level API -------------------------------------------------
 
+    def apply_batch_bytes_resilient(self, payload):
+        """`apply_batch_bytes` behind the resilience layer: transient
+        failures retry with backoff, persistent ones bisect down to the
+        poison doc(s), which quarantine as per-doc error envelopes while
+        every healthy doc commits."""
+        return resilience.apply_payload(self, payload)
+
     def apply_batch(self, changes_by_doc):
-        """{doc_id: [change dict, ...]} -> {doc_id: patch dict}."""
-        keyed = {doc_key(d): chs for d, chs in changes_by_doc.items()}
-        out = msgpack.unpackb(
-            self.apply_batch_bytes(msgpack.packb(keyed, use_bin_type=True)),
-            raw=False, strict_map_key=False)
-        return {d: out[doc_key(d)] for d in changes_by_doc}
+        """{doc_id: [change dict, ...]} -> {doc_id: patch dict}, a
+        quarantined doc's value its error envelope."""
+        return _apply_batch_dicts(self, changes_by_doc)
 
     def apply_changes(self, doc_id, changes):
-        return self.apply_batch({doc_id: changes})[doc_id]
+        out = self.apply_batch({doc_id: changes})[doc_id]
+        _raise_if_quarantined(doc_id, out)
+        return out
 
     def _query(self, fn, doc_id):
         out_len = ctypes.c_int64()
@@ -1175,62 +1293,16 @@ class NativeDocPool:
         """Restores many checkpoints ({doc_id: bytes}, v1 or v2) in ONE
         batch: arena-direct (the default, STORAGE_NATIVE) or, as the
         second arm, one replay of the decoded raw changes through the
-        device kernels.  Both give the same state.  A v2 checkpoint's
-        snapshot is adopted afterwards into docs that held no state before
-        the load: a live doc keeps its own history (the replay of an
-        older checkpoint is a no-op there, and its snapshot need not be a
-        prefix of the doc's history)."""
-        keyed = {}           # doc key -> [part, ...]
-        v1_keys = set()      # docs whose one part is a raw changes array
-        adopts = []
-        fresh_pool = self.doc_count() == 0
-        for doc_id, data in blobs.items():
-            key = doc_key(doc_id)
-            data = bytes(data)
-            if data.startswith(storage.CKPT_V1_PREFIX):
-                keyed[key] = [data[len(storage.CKPT_V1_PREFIX):]]
-                v1_keys.add(key)
-                continue
-            if not data.startswith(storage.CKPT_V2_PREFIX):
-                raise RangeError('not an amtpu-doc checkpoint: %r'
-                                 % (doc_id,))
-            try:
-                frontier, chunks, tail = \
-                    storage.unpack_checkpoint_parts(data)
-            except ValueError as e:
-                raise RangeError('corrupt checkpoint for %r: %s'
-                                 % (doc_id, e))
-            keyed[key] = chunks + [tail]
-            if frontier and chunks and STORAGE_FORMAT != 'json' \
-                    and (fresh_pool or not self._has_clock(doc_id)):
-                adopts.append((key, frontier, chunks))
-        if STORAGE_NATIVE:
-            try:
-                self._apply_columnar(keyed)
-            except RangeError as e:
-                raise RangeError('corrupt checkpoint (docs %s): %s'
-                                 % (sorted(keyed), e))
-        else:
-            self._replay_checkpoints(keyed, v1_keys)
-        for key, frontier, chunks in adopts:
-            self._adopt_snapshot(key, frontier, chunks)
+        device kernels (`_load_batch`)."""
+        _load_batch(self, blobs)
 
-    def _replay_checkpoints(self, keyed, v1_keys):
-        """The replay arm: one `apply_batch_bytes` of every doc's raw
-        changes (a v1 body as it is, v2 chunks and tail decoded)."""
-        parts = [map_header(len(keyed))]
-        for key, doc_parts in keyed.items():
-            parts.append(msgpack.packb(key, use_bin_type=True))
-            if key in v1_keys:
-                parts.append(doc_parts[0])
-                continue
-            try:
-                raws = [raw for part in doc_parts
-                        for raw in storage.decode_columnar(part)]
-            except ValueError as e:
-                raise RangeError('corrupt checkpoint for %r: %s' % (key, e))
-            parts.append(storage.join_changes_array(raws))
-        self.apply_batch_bytes(b''.join(parts))
+    def restore_from_store(self, store, doc_ids=None, batch=None,
+                           threads=None):
+        """Restores a `ColdStore`'s docs into this pool (module-level
+        `restore_from_store`: batches applied in turn, the next batch's
+        blob reads prefetching)."""
+        return restore_from_store(self, store, doc_ids=doc_ids,
+                                  batch=batch, threads=threads)
 
     def _apply_columnar(self, keyed):
         """One arena-direct batch (`amtpu_begin_columnar`) of {doc key:
@@ -1446,3 +1518,563 @@ class NativeDocPool:
         stats = np.frombuffer(buf, dtype=np.int64,
                               count=rows * ncols).reshape(rows, ncols)
         return ids[:rows], stats.copy()
+
+
+# ---------------------------------------------------------------------------
+# the dict API's resilient path
+# ---------------------------------------------------------------------------
+
+def _apply_batch_dicts(pool, changes_by_doc):
+    """The dict-level apply_batch of every pool: a msgpack round trip
+    through the pool's resilient wire path (`apply_batch_bytes_resilient`),
+    so a device or native failure is retried, bisected and at worst
+    quarantined per doc instead of failing every doc of the batch.  (The
+    JAX pool also counts the submitted ops here for its telemetry layer,
+    which waits for its slice.)"""
+    keyed = {doc_key(d): chs for d, chs in changes_by_doc.items()}
+    out = msgpack.unpackb(pool.apply_batch_bytes_resilient(
+        msgpack.packb(keyed, use_bin_type=True)),
+        raw=False, strict_map_key=False)
+    return {d: out[doc_key(d)] for d in changes_by_doc}
+
+
+def _raise_if_quarantined(doc_id, result):
+    """Single-doc entry points keep their raise contract: a quarantine
+    envelope there surfaces as the exception it stands for, its message
+    carrying `resilience.QUARANTINE_RAISE_MARKER`."""
+    if resilience.is_quarantined(result):
+        raise AutomergeError('doc %r%s%s] %s'
+                             % (doc_id, resilience.QUARANTINE_RAISE_MARKER,
+                                result['errorType'], result['error']))
+
+
+# ---------------------------------------------------------------------------
+# checkpoint loads, grouped per base pool
+# ---------------------------------------------------------------------------
+
+def _base_pool_of(pool, doc_id):
+    """The NativeDocPool that owns `doc_id`'s state: a sharded pool
+    routes per doc; a plain pool is its own base."""
+    if hasattr(pool, '_shard_of'):
+        return pool.pools[pool._shard_of(doc_id)]
+    return pool
+
+
+def _v2_adopt_info(pool, doc_id, key, adopts, frontier, chunks,
+                   empty_pools):
+    """Queues the post-apply snapshot adoption of a v2 container, only
+    into docs that held no state before the load: a live doc keeps its
+    own history (an older checkpoint replays as no-ops there, and its
+    snapshot need not be a prefix of the doc's history).  `empty_pools`
+    caches each base pool's emptiness, so a restore into fresh pools
+    asks no per-doc clock."""
+    if not (frontier and chunks and STORAGE_FORMAT != 'json'):
+        return
+    bp = _base_pool_of(pool, doc_id)
+    empty = empty_pools.get(id(bp))
+    if empty is None:
+        empty = empty_pools[id(bp)] = bp.doc_count() == 0
+    if empty or not bp._has_clock(doc_id):
+        adopts.append((bp, key, frontier, chunks))
+
+
+def _load_batch(pool, blobs):
+    """Restores many checkpoints ({doc_id: bytes}, v1 or v2) into `pool`
+    (a NativeDocPool or a ShardedNativePool).
+
+    Arena-direct (STORAGE_NATIVE, the default): docs group per base pool
+    and each group is one `amtpu_begin_columnar` batch, host-resolved in
+    C++; more than one group restore concurrently on a thread pool (the
+    C++ stages release the GIL), the first error raised after every
+    group ran.  The replay arm (STORAGE_NATIVE = False): one
+    `apply_batch_bytes` of every doc's decoded raw changes through the
+    device kernels, which a sharded pool splits by shard.  Either way a
+    v2 checkpoint's snapshot is adopted afterwards (`_v2_adopt_info`)."""
+    if faults.ARMED:
+        faults.fire('checkpoint.load', [doc_key(d) for d in blobs])
+    groups = {}          # id(base pool) -> (base pool, {key: [part, ...]})
+    v1_keys = set()      # docs whose one part is a raw changes array
+    adopts = []          # (base pool, key, frontier, chunks) post-apply
+    empty_pools = {}     # id(base pool) -> held no doc before the load
+    for doc_id, data in blobs.items():
+        key = doc_key(doc_id)
+        data = bytes(data)
+        bp = _base_pool_of(pool, doc_id)
+        keyed = groups.setdefault(id(bp), (bp, {}))[1]
+        if data.startswith(storage.CKPT_V1_PREFIX):
+            keyed[key] = [data[len(storage.CKPT_V1_PREFIX):]]
+            v1_keys.add(key)
+            continue
+        if not data.startswith(storage.CKPT_V2_PREFIX):
+            raise RangeError('not an amtpu-doc checkpoint: %r' % (doc_id,))
+        try:
+            frontier, chunks, tail = storage.unpack_checkpoint_parts(data)
+        except ValueError as e:
+            raise RangeError('corrupt checkpoint for %r: %s' % (doc_id, e))
+        keyed[key] = chunks + [tail]
+        _v2_adopt_info(pool, doc_id, key, adopts, frontier, chunks,
+                       empty_pools)
+    if STORAGE_NATIVE:
+        def apply_group(bp, keyed):
+            try:
+                bp._apply_columnar(keyed)
+            except RangeError as e:
+                raise RangeError('corrupt checkpoint (docs %s): %s'
+                                 % (sorted(keyed), e))
+        if len(groups) > 1:
+            with concurrent.futures.ThreadPoolExecutor(
+                    max_workers=min(len(groups), os.cpu_count() or 1)) as ex:
+                futs = [ex.submit(apply_group, bp, keyed)
+                        for bp, keyed in groups.values()]
+                errors = [f.exception() for f in futs
+                          if f.exception() is not None]
+            if errors:
+                raise errors[0]
+        else:
+            for bp, keyed in groups.values():
+                apply_group(bp, keyed)
+    else:
+        _replay_checkpoints(pool, [kv for _bp, keyed in groups.values()
+                                   for kv in keyed.items()], v1_keys)
+    for bp, key, frontier, chunks in adopts:
+        bp._adopt_snapshot(key, frontier, chunks)
+
+
+def _replay_checkpoints(pool, items, v1_keys):
+    """The replay arm: one `apply_batch_bytes` of every doc's raw
+    changes (a v1 body as it is, v2 chunks and tail decoded)."""
+    parts = [map_header(len(items))]
+    for key, doc_parts in items:
+        parts.append(msgpack.packb(key, use_bin_type=True))
+        if key in v1_keys:
+            parts.append(doc_parts[0])
+            continue
+        try:
+            raws = [raw for part in doc_parts
+                    for raw in storage.decode_columnar(part)]
+        except ValueError as e:
+            raise RangeError('corrupt checkpoint for %r: %s' % (key, e))
+        parts.append(storage.join_changes_array(raws))
+    pool.apply_batch_bytes(b''.join(parts))
+
+
+def restore_threads():
+    """The restore fan-out RESTORE_THREADS gives (0: one worker per core,
+    at most 8)."""
+    n = RESTORE_THREADS
+    if n <= 0:
+        n = min(8, os.cpu_count() or 1)
+    return n
+
+
+def restore_from_store(pool, store, doc_ids=None, batch=None,
+                       threads=None):
+    """Restores docs of a `ColdStore` (all of them, in sorted order, or
+    `doc_ids`) into `pool`, a NativeDocPool or a ShardedNativePool.
+
+    * Docs group per base pool (`_base_pool_of`); each group restores on
+      its own worker (at most `threads`, default `restore_threads()`), in
+      batches of `batch` docs (default RESTORE_BATCH) through
+      `_load_batch`.  Within a group a one-thread reader prefetches the
+      next batch's blobs while the current batch applies.
+    * A corrupt blob (`ColdStoreCorrupt`) quarantines that doc into the
+      summary's `corrupt` map; a batch that fails is applied again doc by
+      doc, and docs that still fail land in `failed`, each as a
+      resilience error envelope.
+    * Counters `storage.restore.{docs,bytes,batches,corrupt,failed}`.
+      (The JAX package also logs start, finish and every quarantined doc
+      to its flight recorder, which waits for its slice.)
+
+    Returns {'docs', 'bytes', 'batches', 'corrupt': {doc: envelope},
+    'failed': {doc: envelope}, 'elapsed_s'}."""
+    from ..storage.coldstore import ColdStoreCorrupt
+    t0 = time.perf_counter()
+    doc_ids = sorted(store.doc_ids()) if doc_ids is None else list(doc_ids)
+    if batch is None:
+        batch = max(1, RESTORE_BATCH)
+    if threads is None:
+        threads = restore_threads()
+    groups = {}          # id(base pool) -> (base pool, [doc ids])
+    if hasattr(pool, '_shard_of'):
+        pool.pools       # build the shards (and load the kernels) here
+    for d in doc_ids:
+        bp = _base_pool_of(pool, d)
+        groups.setdefault(id(bp), (bp, []))[1].append(d)
+    lock = threading.Lock()
+    summary = {'docs': 0, 'bytes': 0, 'batches': 0,
+               'corrupt': {}, 'failed': {}}
+
+    def read_blobs(ids):
+        blobs = {}
+        for d in ids:
+            try:
+                blobs[d] = store.get(d)
+            except ColdStoreCorrupt as e:
+                trace.metric('storage.restore.corrupt')
+                with lock:
+                    summary['corrupt'][d] = resilience.error_envelope(e)
+            except KeyError:
+                pass     # dropped between the inventory walk and the read
+        return blobs
+
+    def apply_blobs(bp, blobs):
+        if not blobs:
+            return
+        try:
+            _load_batch(bp, blobs)
+        except Exception:
+            # one poison blob must not fail the other docs of its batch
+            for d, data in blobs.items():
+                try:
+                    _load_batch(bp, {d: data})
+                except Exception as e:
+                    trace.metric('storage.restore.failed')
+                    with lock:
+                        summary['failed'][d] = resilience.error_envelope(e)
+        n_bytes = sum(len(v) for v in blobs.values())
+        with lock:
+            summary['docs'] += len(blobs)
+            summary['bytes'] += n_bytes
+            summary['batches'] += 1
+        trace.metric('storage.restore.docs', len(blobs))
+        trace.metric('storage.restore.bytes', n_bytes)
+        trace.metric('storage.restore.batches')
+
+    def run_group(bp, ids):
+        chunks = [ids[i:i + batch] for i in range(0, len(ids), batch)]
+        with concurrent.futures.ThreadPoolExecutor(1) as reader:
+            pending = reader.submit(read_blobs, chunks[0]) \
+                if chunks else None
+            for i in range(len(chunks)):
+                blobs = pending.result()
+                pending = reader.submit(read_blobs, chunks[i + 1]) \
+                    if i + 1 < len(chunks) else None
+                apply_blobs(bp, blobs)
+
+    group_list = [g for g in groups.values() if g[1]]
+    if len(group_list) > 1 and threads > 1:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(threads, len(group_list))) as ex:
+            futs = [ex.submit(run_group, bp, ids) for bp, ids in group_list]
+            errors = [f.exception() for f in futs
+                      if f.exception() is not None]
+        if errors:
+            raise errors[0]
+    else:
+        for bp, ids in group_list:
+            run_group(bp, ids)
+    summary['elapsed_s'] = round(time.perf_counter() - t0, 3)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# the sharded pool
+# ---------------------------------------------------------------------------
+
+def _raise_shard_errors(errors):
+    """Per-shard error reporting: a single failure re-raises with its
+    shard named; several aggregate every shard's message, keeping the
+    exception class when every shard failed the same way."""
+    if not errors:
+        return
+    if len(errors) == 1:
+        shard, err = errors[0]
+        err.args = ('[shard %d] %s' % (shard, err.args[0] if err.args
+                                       else err),) + err.args[1:]
+        raise err
+    types = {type(e) for _, e in errors}
+    cls = types.pop() if len(types) == 1 else AutomergeError
+    try:
+        probe = cls('probe')          # must accept a lone message arg
+    except Exception:
+        cls, probe = AutomergeError, None
+    if probe is not None and not isinstance(probe, Exception):
+        cls = AutomergeError
+    raise cls(
+        '%d shards failed: ' % len(errors) +
+        '; '.join('[shard %d] %s: %s' % (s, type(e).__name__, e)
+                  for s, e in errors)) from errors[0][1]
+
+
+def _load_kernels(device):
+    """Builds and loads every CUDA kernel of a card pool on the calling
+    thread: the loaders take no lock, so worker threads must find them
+    loaded."""
+    if device.type == 'cuda':
+        from ..ops import _build
+        for name in _build.KERNELS:
+            _build.kernel(name)
+
+
+class ShardedNativePool:
+    """S independent NativeDocPools on one device, driven pipelined or
+    threaded.
+
+    * pipeline: one thread; phase a (C++ begin, uploads, kernel
+      enqueue) of every shard first, then phase b (wait, C++ mid, emit)
+      ready-first (`_collect_ready_order`), so shard k's kernels overlap
+      shard k+1's begin.  Shards are not split into waves.
+    * threads: one thread per shard, each calling its pool's
+      `apply_batch_bytes` on its sub-payload; the C++ stages release the
+      GIL, so begin and emit of the shards run concurrently.  Every
+      thread launches on its current stream, the default stream.
+
+    Doc -> shard routing is the C++ payload splitter's FNV-1a hash
+    (`amtpu_doc_shard`).  Result maps merge at the byte level in shard
+    order.  Shards commit independently: a failed shard's sub-payload
+    re-applies through the resilience layer while the healthy shards'
+    results stand.  Every shard is a `NativeDocPool(device)`: CUDA
+    unless the caller passes device='cpu'.
+    """
+
+    @staticmethod
+    def resolve_mode(mode=None):
+        cores = os.cpu_count() or 1
+        mode = mode or SHARD_MODE
+        if not mode:
+            mode = 'pipeline' if cores == 1 else 'threads'
+        if mode not in ('pipeline', 'threads'):
+            raise ValueError('unknown shard mode %r' % (mode,))
+        return mode
+
+    @classmethod
+    def default_shards(cls, mode=None):
+        """The mode's shard count: 20 in pipeline mode (more shards than
+        cores give finer overlap), one per core (at most 8) in threads
+        mode.  The port is the kernel path on every device, so the JAX
+        pool's one-shard host-full default has no counterpart."""
+        if cls.resolve_mode(mode) == 'pipeline':
+            return 20
+        return min(8, os.cpu_count() or 1)
+
+    def __init__(self, n_shards=None, mode=None, device=None):
+        self.mode = self.resolve_mode(mode)
+        if n_shards is not None and n_shards < 1:
+            raise ValueError('n_shards must be >= 1, got %r' % (n_shards,))
+        self.device = _pool_device(device)
+        self._n_shards = n_shards        # guarded-by(w): self._pools_lock
+        self._pools = None               # guarded-by(w): self._pools_lock
+        # any entry point may be the first to build the shards, from any
+        # thread: the lock makes every caller see one pool list
+        self._pools_lock = threading.Lock()
+
+    @property
+    def n_shards(self):
+        if self._n_shards is None:
+            with self._pools_lock:
+                if self._n_shards is None:
+                    self._n_shards = self.default_shards(self.mode)
+        return self._n_shards
+
+    @property
+    def pools(self):
+        if self._pools is None:
+            n = self.n_shards        # takes the same lock: resolve first
+            with self._pools_lock:
+                if self._pools is None:
+                    pools = [NativeDocPool(self.device) for _ in range(n)]
+                    _load_kernels(self.device)
+                    self._pools = pools
+        return self._pools
+
+    def _shard_of(self, doc_id):
+        key = doc_key(doc_id).encode()
+        return int(lib().amtpu_doc_shard(key, len(key), self.n_shards))
+
+    def apply_batch_bytes(self, payload):
+        """msgpack {doc_id: [change...]} -> msgpack {doc_id: patch}, the
+        shards' maps concatenated in shard order."""
+        L = lib()
+        self.pools       # build the shards and load the kernels here
+        with trace.span('shard.split'):
+            sp = L.amtpu_shard_split(payload, len(payload), self.n_shards)
+            if not sp:
+                _raise_last()
+        try:
+            # zero-copy: sub-payloads stay in the splitter's buffers,
+            # which outlive every begin (freed below)
+            subs = []
+            for s in range(self.n_shards):
+                n = ctypes.c_int64()
+                ptr = L.amtpu_shard_buf(sp, s, ctypes.byref(n))
+                subs.append((ctypes.cast(ptr, ctypes.c_char_p), n.value)
+                            if n.value > 1 else None)
+            with trace.span('shard.run'):
+                results, errors = self._run(subs)
+            if errors:
+                # a failed shard rolled its pool back: its sub-payload
+                # re-applies through the resilience layer while the
+                # healthy shards' results stand
+                errors = self._retry_failed_shards(subs, results, errors)
+            _raise_shard_errors(errors)
+        finally:
+            L.amtpu_shard_free(sp)
+        total = 0
+        bodies = []
+        for r in results:
+            if r is None:
+                continue
+            n, off = read_map_header(r)
+            total += n
+            bodies.append(memoryview(r)[off:])
+        return map_header(total) + b''.join(bodies)
+
+    def _run(self, subs):
+        if self.mode == 'pipeline':
+            return self._run_pipelined(subs)
+        return self._run_threaded(subs)
+
+    def _run_pipelined(self, subs):
+        """Phase a for every shard, then phase b ready-first.  Every
+        shard that began runs to completion whatever failed before it;
+        errors come back per shard."""
+        ctxs = []
+        results = [None] * self.n_shards
+        errors = []
+        for s, sub in enumerate(subs):
+            if sub is None:
+                continue
+            try:
+                ctxs.append((s, self.pools[s], self.pools[s]._start(sub)))
+            except Exception as e:
+                errors.append((s, e))
+        _collect_ready_order(ctxs, on_result=results.__setitem__,
+                             on_error=lambda s, e: errors.append((s, e)))
+        return results, errors
+
+    def _run_threaded(self, subs):
+        results = [None] * self.n_shards
+        errors = []
+
+        def run(s):
+            try:
+                results[s] = self.pools[s].apply_batch_bytes(subs[s])
+            except Exception as e:         # re-raised on the caller thread
+                errors.append((s, e))
+
+        threads = [threading.Thread(target=run, args=(s,))
+                   for s, sub in enumerate(subs) if sub is not None]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return results, sorted(errors, key=lambda se: se[0])
+
+    def _retry_failed_shards(self, subs, results, errors):
+        """Re-applies each failed shard's sub-payload through the
+        resilience layer on that shard's pool; returns the errors it
+        must not isolate (they re-raise)."""
+        remaining = []
+        for s, e in errors:
+            if not resilience.should_isolate(e):
+                remaining.append((s, e))
+                continue
+            try:
+                results[s] = resilience.apply_payload(
+                    self.pools[s], subs[s], first_exc=e)
+            except Exception as e2:
+                remaining.append((s, e2))
+        return remaining
+
+    def apply_batch_bytes_resilient(self, payload):
+        """`apply_batch_bytes`: the sharded pool isolates failures per
+        shard itself."""
+        return self.apply_batch_bytes(payload)
+
+    def apply_batch(self, changes_by_doc):
+        return _apply_batch_dicts(self, changes_by_doc)
+
+    def _pool_of(self, doc_id):
+        return self.pools[self._shard_of(doc_id)]
+
+    def apply_changes(self, doc_id, changes):
+        # one doc: its shard's pool raises a quarantine itself
+        return self._pool_of(doc_id).apply_changes(doc_id, changes)
+
+    def apply_local_change(self, doc_id, request):
+        return self._pool_of(doc_id).apply_local_change(doc_id, request)
+
+    def get_patch(self, doc_id):
+        return self._pool_of(doc_id).get_patch(doc_id)
+
+    def get_clock(self, doc_id):
+        return self._pool_of(doc_id).get_clock(doc_id)
+
+    def save(self, doc_id):
+        return self._pool_of(doc_id).save(doc_id)
+
+    def load(self, doc_id, data):
+        return self._pool_of(doc_id).load(doc_id, data)
+
+    def load_batch(self, blobs):
+        """Many checkpoints at once, grouped per shard (`_load_batch`)."""
+        _load_batch(self, blobs)
+
+    def restore_from_store(self, store, doc_ids=None, batch=None,
+                           threads=None):
+        """A `ColdStore`'s docs restored shard by shard, one worker per
+        shard (module-level `restore_from_store`)."""
+        return restore_from_store(self, store, doc_ids=doc_ids,
+                                  batch=batch, threads=threads)
+
+    def get_missing_deps(self, doc_id):
+        return self._pool_of(doc_id).get_missing_deps(doc_id)
+
+    def get_missing_changes(self, doc_id, have_deps):
+        return self._pool_of(doc_id).get_missing_changes(doc_id, have_deps)
+
+    def get_register(self, doc_id, obj, key):
+        return self._pool_of(doc_id).get_register(doc_id, obj, key)
+
+    def get_changes_for_actor(self, doc_id, actor, after_seq=0):
+        return self._pool_of(doc_id).get_changes_for_actor(
+            doc_id, actor, after_seq)
+
+    def get_changes_for_actor_bytes(self, doc_id, actor, after_seq=0):
+        return self._pool_of(doc_id).get_changes_for_actor_bytes(
+            doc_id, actor, after_seq)
+
+    def compact(self, doc_id, frontier=None, min_changes=0):
+        return self._pool_of(doc_id).compact(doc_id, frontier, min_changes)
+
+    def drop_doc(self, doc_id):
+        return self._pool_of(doc_id).drop_doc(doc_id)
+
+    def _sum(self, name, doc_id):
+        if doc_id is not None:
+            return getattr(self._pool_of(doc_id), name)(doc_id)
+        return sum(getattr(p, name)() for p in self.pools)
+
+    def history_bytes(self, doc_id=None):
+        return self._sum('history_bytes', doc_id)
+
+    def op_count(self, doc_id=None):
+        return self._sum('op_count', doc_id)
+
+    def clock_pairs(self, doc_id=None):
+        return self._sum('clock_pairs', doc_id)
+
+    def resclk_row_bytes(self):
+        """The widest shard's clock-table row."""
+        return max(p.resclk_row_bytes() for p in self.pools)
+
+    DOC_STAT_COLS = NativeDocPool.DOC_STAT_COLS
+
+    def doc_stats(self):
+        """Per-doc stats of every shard, concatenated in shard order."""
+        ids, mats = [], []
+        for p in self.pools:
+            pids, pstats = p.doc_stats()
+            ids.extend(pids)
+            if len(pids):
+                mats.append(pstats)
+        if not mats:
+            return ids, np.zeros((0, len(self.DOC_STAT_COLS)), np.int64)
+        return ids, np.concatenate(mats, axis=0)
+
+
+def make_pool(device=None):
+    """The pool factory: a `NativeDocPool(device)`.  The JAX package's
+    factory builds a mesh pool when AMTPU_MESH asks for one; that branch
+    comes with the port's multi-GPU pools."""
+    return NativeDocPool(device)

@@ -92,11 +92,13 @@ _ABI = {
     'amtpu_doc_ids': (_u8p, [_vp, _i64p]),
     'amtpu_doc_stats': (_i64, [_vp, _i64p, _i64]),
     'amtpu_buf_free': (None, [_u8p]),
-    # doc-disjoint payload split by FNV-1a doc hash (the pool's waves):
+    # doc-disjoint payload split by FNV-1a doc hash (waves and shards):
     # sub-payload buffers are owned by the split handle until its free
     'amtpu_shard_split': (_vp, [_cp, _i64, _int]),
     'amtpu_shard_buf': (_u8p, [_vp, _int, _i64p]),
     'amtpu_shard_free': (None, [_vp]),
+    # the splitter's per-doc router: FNV-1a of the doc key mod n_shards
+    'amtpu_doc_shard': (ctypes.c_uint32, [_cp, _i64, _int]),
     # v2 checkpoints: the columnar codec (raws cross BIN-wrapped in a
     # msgpack array both ways), history truncation and settled-state
     # folding behind a msgpack {actor: seq} frontier

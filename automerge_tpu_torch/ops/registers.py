@@ -25,7 +25,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from .. import trace
+from .. import faults, trace
 
 # Window of predecessors considered per op (the C++ member-window width).
 WINDOW = 8
@@ -477,6 +477,10 @@ def escalate_dispatch_groups(groups, time, actor, seq, is_del,
     of groups wider than every tier or over the scratch budget, which
     the caller resolves with the oracle; tier_rows is {W: rows resolved}.
     `want_visible_before=False` drops that output and its compute."""
+    if faults.ARMED:
+        # the tiers run over a still-live batch handle: a fault here
+        # propagates to the phase handlers, which roll the pool back
+        faults.fire('escalation.tier')
     budget = DEFAULT_ESCALATION_BUDGET
     time = np.asarray(time, np.int32)
     actor = np.asarray(actor, np.int32)

@@ -66,7 +66,7 @@ def pack_checkpoint_v1(raws):
 
 def encode_columnar(raws):
     """Raw change bytes -> one columnar blob (the C++ codec)."""
-    from .native._lib import lib, take_buf
+    from ..native._lib import lib, take_buf
     payload = msgpack.packb([bytes(r) for r in raws], use_bin_type=True)
     out_len = ctypes.c_int64()
     ptr = lib().amtpu_columnar_encode(payload, len(payload),
@@ -80,7 +80,7 @@ def encode_columnar(raws):
 def decode_columnar(blob):
     """Columnar blob -> the raw change bytes it was encoded from, byte for
     byte.  A corrupt blob raises ValueError."""
-    from .native._lib import lib, take_buf
+    from ..native._lib import lib, take_buf
     blob = bytes(blob)
     out_len = ctypes.c_int64()
     ptr = lib().amtpu_columnar_decode(blob, len(blob), ctypes.byref(out_len))

@@ -14,7 +14,10 @@ concurrent writers, the shape that climbs the escalation ladder.
 `long_text_doc` and `keystroke_edits` are a long text document and the
 edits a collaborative editor sends to it, one keystroke per batch (the
 shape of `bench.py::run_multichip_sp_child`, the JAX package's probe of
-its device-resident arena).
+its device-resident arena).  `coldstart_doc_changes` and
+`build_coldstart_blobs` are the cold-start corpus of `bench.py
+--coldstart` (`tools/coldstart_check.py`), and `bench_shards` the shard
+count `bench.py::run_config` gives a batch.
 """
 
 from .utils import ROOT_ID
@@ -277,3 +280,66 @@ def keystroke_edits(n_elems, n_keys=24):
          'key': 'a0:%d' % (n_elems // 3)}])], False))
     steps += keystrokes(4)
     return steps
+
+
+def coldstart_doc_changes(d, rng, rounds=16, ops_per_round=8):
+    """Doc `d`'s history in the cold-start corpus
+    (`tools/coldstart_check.py::_doc_changes`): a text session of three
+    actors, `rounds` rounds of `ops_per_round` ops (inserts, each with
+    its character), a root-key set every fourth round; 17 changes with
+    the defaults."""
+    doc_t = 'T%d' % d
+    chs = [{'actor': 'a0', 'seq': 1, 'deps': {}, 'ops': [
+        {'action': 'makeText', 'obj': doc_t},
+        {'action': 'link', 'obj': ROOT_ID, 'key': 'text',
+         'value': doc_t}]}]
+    clock = {'a0': 1}
+    prev, elem = '_head', 0
+    for r in range(rounds):
+        actor = 'a%d' % (r % 3)
+        clock[actor] = clock.get(actor, 0) + 1
+        ops = []
+        for _o in range(ops_per_round // 2):
+            elem += 1
+            ops.append({'action': 'ins', 'obj': doc_t, 'key': prev,
+                        'elem': elem})
+            key = '%s:%d' % (actor, elem)
+            ops.append({'action': 'set', 'obj': doc_t, 'key': key,
+                        'value': chr(97 + (elem * 7) % 26)})
+            prev = key
+        if r % 4 == 0:
+            ops.append({'action': 'set', 'obj': ROOT_ID,
+                        'key': 'k%d' % (r % 3),
+                        'value': rng.randrange(10000)})
+        chs.append({'actor': actor, 'seq': clock[actor],
+                    'deps': {a: s for a, s in clock.items()
+                             if a != actor},
+                    'ops': ops})
+    return chs
+
+
+def coldstart_doc_id(d):
+    return 'doc-%05d' % d
+
+
+def build_coldstart_blobs(pool, n_docs, rng, batch_docs=512):
+    """The cold-start corpus on `pool` (`tools/coldstart_check.py::
+    _build_blobs`): `n_docs` docs applied in batches of `batch_docs`,
+    every other doc compacted, then every doc saved.  Returns {doc id:
+    checkpoint bytes}."""
+    for base in range(0, n_docs, batch_docs):
+        pool.apply_batch({coldstart_doc_id(d): coldstart_doc_changes(d, rng)
+                          for d in range(base, min(base + batch_docs,
+                                                   n_docs))})
+    for d in range(0, n_docs, 2):
+        pool.compact(coldstart_doc_id(d))
+    return {coldstart_doc_id(d): pool.save(coldstart_doc_id(d))
+            for d in range(n_docs)}
+
+
+def bench_shards(n_docs, mode=None):
+    """The shard count `bench.py::run_config` gives a batch of `n_docs`
+    docs: the mode's default (`ShardedNativePool.default_shards`), at
+    most one per doc (1: a plain pool)."""
+    from .native import ShardedNativePool
+    return min(ShardedNativePool.default_shards(mode), n_docs)
