@@ -38,7 +38,7 @@ Disarmed, a hot path pays one module-attribute read per site
 import random
 import threading
 
-from . import trace
+from . import telemetry, trace
 
 #: the site universe: arm() rejects anything else
 SITES = ('native.begin', 'native.mid', 'device.dispatch',
@@ -178,8 +178,8 @@ def fire(site, docs=None):
             return
     trace.metric('resilience.fault_injected')
     trace.metric('resilience.fault_injected.' + site)
-    # the JAX package also logs the fire to its flight recorder, a
-    # telemetry layer the port has not taken over yet
+    telemetry.recorder.record('fault.injected', n=1, doc=spec.match,
+                              detail='%s:%s' % (site, kind))
     cls = TransientFault if kind == 'transient' else PermanentFault
     raise cls(site, spec.match if spec.match is not None else '')
 

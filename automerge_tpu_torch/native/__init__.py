@@ -81,11 +81,12 @@ import msgpack
 import numpy as np
 import torch
 
-from .. import faults, resilience, storage, trace
+from .. import faults, resilience, storage, telemetry, trace
 from ..errors import AutomergeError, RangeError
 from ..ops import list_rank
 from ..ops import registers as register_ops
 from ..ops.dominance_kernel import dominance_grouped_auto
+from ..telemetry import attribution, recorder
 from ..utils import doc_key, map_header, read_map_header
 from ._lib import lib, loaded, take_buf
 from .clock_cache import PoolClockCache
@@ -179,8 +180,11 @@ def _rollback_batch(bh, exc=None):
         if exc is not None:
             exc.amtpu_state_suspect = True
         trace.metric('resilience.rollback_unavailable')
+        recorder.record('batch.rollback', detail='state_suspect')
         return False
     trace.metric('resilience.rollback')
+    recorder.record('batch.rollback',
+                    detail=type(exc).__name__ if exc is not None else None)
     return True
 
 
@@ -364,27 +368,39 @@ class NativeDocPool:
     # -- wire path ------------------------------------------------------
 
     def apply_batch_bytes(self, payload):
-        """msgpack {doc_id: [change...]} -> msgpack {doc_id: patch}."""
+        """msgpack {doc_id: [change...]} -> msgpack {doc_id: patch}.
+
+        Telemetry as in the JAX pool: a `batch.begin` recorder event, the
+        `native` batch latency series (and `batch.commit`) on success,
+        and the dispatch/collect flush-phase seams the gateway reads."""
+        t0 = time.perf_counter()
         docs = 0
         if isinstance(payload, (bytes, bytearray)):
             try:
                 docs = read_map_header(payload)[0]
             except (ValueError, IndexError):
                 pass    # malformed: C++ begin raises its typed error
+        recorder.record('batch.begin', n=docs)
+        out = None
         # armed faults pin exact single-batch rollback semantics: no waves,
         # as in the JAX pool
         if docs >= max(2, PIPELINE_MIN_DOCS) and PIPELINE_DEPTH >= 2 \
                 and not faults.ARMED:
             try:
-                return self._apply_waves(payload, docs)
+                out = self._apply_waves(payload, docs)
             except Exception as e:
                 if getattr(e, 'amtpu_state_suspect', False):
                     raise
-            # every wave rolled back before emit: the serial replay
-            # raises a multi-error payload's FIRST error in application
-            # order, whatever the waves' hash order
-            trace.metric('pipeline.serial_replay')
-        return self._run_batch(*self._begin(payload))
+                # every wave rolled back before emit: the serial replay
+                # raises a multi-error payload's FIRST error in
+                # application order, whatever the waves' hash order
+                trace.metric('pipeline.serial_replay')
+        if out is None:
+            t_begin = time.perf_counter()
+            out = self._run_batch(*self._begin(payload), t0=t_begin)
+        telemetry.observe_batch('native', time.perf_counter() - t0,
+                                docs=docs)
+        return out
 
     def _begin(self, payload):
         """C++ begin over msgpack bytes or a (ctypes pointer, length) pair
@@ -454,6 +470,7 @@ class NativeDocPool:
                     subs.append((ctypes.cast(ptr, ctypes.c_char_p), n.value))
             ctxs = []
             t_a0 = None
+            t_loop0 = time.perf_counter()
             try:
                 for i, sub in enumerate(subs):
                     ctxs.append((i, self, self._start(sub)))
@@ -470,10 +487,16 @@ class NativeDocPool:
                 trace.metric('collect.overlap_s', time.perf_counter() - t_a0)
             trace.metric('pipeline.batches')
             trace.metric('pipeline.waves', len(ctxs))
+            t_disp = time.perf_counter()
+            attribution.note_flush_phase('dispatch', t_disp - t_loop0)
+            recorder.record('wave.dispatch', n=len(ctxs))
             results = [None] * len(ctxs)
             errors = []
             _collect_ready_order(ctxs, on_result=results.__setitem__,
                                  on_error=lambda i, e: errors.append(e))
+            attribution.note_flush_phase('collect',
+                                         time.perf_counter() - t_disp)
+            recorder.record('wave.collect', n=len(ctxs))
             if errors:
                 err = errors[0]
                 if any(r is not None for r in results) or any(
@@ -508,12 +531,22 @@ class NativeDocPool:
         out = self._run_batch(bh, fault_docs)
         return msgpack.unpackb(out, raw=False, strict_map_key=False)[key]
 
-    def _run_batch(self, bh, fault_docs=None):
+    def _run_batch(self, bh, fault_docs=None, t0=None):
         """Phase a + b over a begun batch, unpipelined; rolls back on
-        failure and always frees the handle."""
+        failure and always frees the handle.  The flush-phase seams split
+        the wall at the phase boundary: `dispatch` = begin (from `t0`)
+        and the enqueue of the device work, `collect` = the wait on the
+        card (the CUDA event's synchronize) and the host mid and emit."""
+        t0 = time.perf_counter() if t0 is None else t0
         try:
             ctx = self._phase_a(bh, fault_docs)
-            return self._phase_b(ctx)
+            t1 = time.perf_counter()
+            attribution.note_flush_phase('dispatch', t1 - t0)
+            try:
+                return self._phase_b(ctx)
+            finally:
+                attribution.note_flush_phase('collect',
+                                             time.perf_counter() - t1)
         except Exception as e:
             _rollback_batch(bh, e)
             raise
@@ -580,6 +613,7 @@ class NativeDocPool:
             self._resclk.drop_if_disabled(L, self._pool)
         if faults.ARMED:
             faults.fire('device.dispatch', fault_docs)
+        dev_t0 = self._devtime_start()
         with trace.span('device.dispatch'):
             if fused_ok:
                 self._dispatch_fused(L, ctx, Tp, Ap, CTp, Lp, max_obj,
@@ -595,9 +629,40 @@ class NativeDocPool:
                 if hovf is not None and hovf.any():
                     ctx['esc'] = self._escalation_dispatch(L, ctx)
         if self.device.type == 'cuda':
-            ctx['event'] = torch.cuda.Event()
+            ctx['event'] = torch.cuda.Event(enable_timing=dev_t0 is not None)
             ctx['event'].record()
+            ctx['dev_t0'] = dev_t0
+        else:
+            self._devtime_end(dev_t0)
         return ctx
+
+    def _devtime_start(self):
+        """The start of one timed dispatch under `telemetry.DEVTIME`: a
+        CUDA event recorded on a card pool, the host clock on a CPU pool
+        (where the dispatch runs synchronously); None while it is off."""
+        if not telemetry.devtime_on():
+            return None
+        if self.device.type == 'cuda':
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            return start
+        return time.perf_counter()
+
+    def _devtime_end(self, start, end=None):
+        """Closes a dispatch `_devtime_start` opened: on a card pool the
+        card's time from the start event to `end` (recorded here when not
+        given), waited for; on a CPU pool the host time since `start`."""
+        if start is None:
+            return
+        if self.device.type == 'cuda':
+            if end is None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            seconds = time.perf_counter() - start
+        telemetry.observe_device_dispatch(seconds)
 
     def _register_views(self, L, bh, Tp, Ap, CTp, ctab_dev=None):
         """The register columns on the device.  `ctab_dev` (the pool-
@@ -747,6 +812,8 @@ class NativeDocPool:
             # C++ batch may be rolled back and freed under them
             faults.fire('device.collect', ctx['fault_docs'])
             faults.fire('native.mid', ctx['fault_docs'])
+        if ctx.get('dev_t0') is not None:
+            self._devtime_end(ctx['dev_t0'], ctx['event'])
         T, Tp, A, Ap, Larena, Lp, n_blocks, max_obj, CTp = ctx['dims']
         if ctx['mode'] == 'fused':
             with trace.span('device.collect'):
@@ -1075,6 +1142,7 @@ class NativeDocPool:
         dims = (ctypes.c_int64 * self.N_DIMS)()
         L.amtpu_batch_dims(bh, dims)
         bdims = (ctypes.c_int64 * 3)()
+        dev_t0 = self._devtime_start()
         with trace.span('device.dominance'):
             for blk in range(int(dims[6])):
                 L.amtpu_dom_dims(bh, blk, bdims)
@@ -1089,6 +1157,7 @@ class NativeDocPool:
                     self._upload(_view(L.amtpu_dom_ov(bh, blk), st), bool),
                     chunk=64)).astype(np.int32)
                 L.amtpu_dom_set_indexes(bh, blk, _ip(idx))
+        self._devtime_end(dev_t0)
 
     # -- the degraded route ---------------------------------------------
 
@@ -1312,12 +1381,17 @@ class NativeDocPool:
         pool does the same on every backend."""
         L = lib()
         payload = msgpack.packb(keyed, use_bin_type=True)
+        t0 = time.perf_counter()
         with trace.span('host.begin'):
             bh = L.amtpu_begin_columnar(self._pool, payload, len(payload))
         if not bh:
             _raise_last()
         _track_begin()
         trace.metric('storage.native_loads')
+        # no device work to dispatch: the begin is the dispatch phase,
+        # mid and emit the collect phase, as the JAX pool splits them
+        t1 = time.perf_counter()
+        attribution.note_flush_phase('dispatch', t1 - t0)
         try:
             dims = (ctypes.c_int64 * self.N_DIMS)()
             L.amtpu_batch_dims(bh, dims)
@@ -1334,6 +1408,8 @@ class NativeDocPool:
             _rollback_batch(bh, e)
             raise
         finally:
+            attribution.note_flush_phase('collect',
+                                         time.perf_counter() - t1)
             _free_batch(bh)
 
     def load(self, doc_id, data):
@@ -1528,13 +1604,16 @@ def _apply_batch_dicts(pool, changes_by_doc):
     """The dict-level apply_batch of every pool: a msgpack round trip
     through the pool's resilient wire path (`apply_batch_bytes_resilient`),
     so a device or native failure is retried, bisected and at worst
-    quarantined per doc instead of failing every doc of the batch.  (The
-    JAX pool also counts the submitted ops here for its telemetry layer,
-    which waits for its slice.)"""
+    quarantined per doc instead of failing every doc of the batch.  The
+    submitted ops of a committed batch count into `telemetry.OPS` here,
+    where the changes exist as dicts (duplicates and queued changes
+    included, as in the JAX pool)."""
     keyed = {doc_key(d): chs for d, chs in changes_by_doc.items()}
     out = msgpack.unpackb(pool.apply_batch_bytes_resilient(
         msgpack.packb(keyed, use_bin_type=True)),
         raw=False, strict_map_key=False)
+    telemetry.OPS.inc(sum(len(c.get('ops', ()))
+                          for chs in changes_by_doc.values() for c in chs))
     return {d: out[doc_key(d)] for d in changes_by_doc}
 
 
@@ -1681,9 +1760,8 @@ def restore_from_store(pool, store, doc_ids=None, batch=None,
       summary's `corrupt` map; a batch that fails is applied again doc by
       doc, and docs that still fail land in `failed`, each as a
       resilience error envelope.
-    * Counters `storage.restore.{docs,bytes,batches,corrupt,failed}`.
-      (The JAX package also logs start, finish and every quarantined doc
-      to its flight recorder, which waits for its slice.)
+    * Counters `storage.restore.{docs,bytes,batches,corrupt,failed}`,
+      and `restore.start/corrupt/failed/done` recorder events.
 
     Returns {'docs', 'bytes', 'batches', 'corrupt': {doc: envelope},
     'failed': {doc: envelope}, 'elapsed_s'}."""
@@ -1694,6 +1772,8 @@ def restore_from_store(pool, store, doc_ids=None, batch=None,
         batch = max(1, RESTORE_BATCH)
     if threads is None:
         threads = restore_threads()
+    recorder.record('restore.start', n=len(doc_ids),
+                    detail='threads=%d batch=%d' % (threads, batch))
     groups = {}          # id(base pool) -> (base pool, [doc ids])
     if hasattr(pool, '_shard_of'):
         pool.pools       # build the shards (and load the kernels) here
@@ -1711,6 +1791,8 @@ def restore_from_store(pool, store, doc_ids=None, batch=None,
                 blobs[d] = store.get(d)
             except ColdStoreCorrupt as e:
                 trace.metric('storage.restore.corrupt')
+                recorder.record('restore.corrupt', doc=doc_key(d),
+                                detail=str(e))
                 with lock:
                     summary['corrupt'][d] = resilience.error_envelope(e)
             except KeyError:
@@ -1729,6 +1811,8 @@ def restore_from_store(pool, store, doc_ids=None, batch=None,
                     _load_batch(bp, {d: data})
                 except Exception as e:
                     trace.metric('storage.restore.failed')
+                    recorder.record('restore.failed', doc=doc_key(d),
+                                    detail=str(e))
                     with lock:
                         summary['failed'][d] = resilience.error_envelope(e)
         n_bytes = sum(len(v) for v in blobs.values())
@@ -1764,6 +1848,10 @@ def restore_from_store(pool, store, doc_ids=None, batch=None,
         for bp, ids in group_list:
             run_group(bp, ids)
     summary['elapsed_s'] = round(time.perf_counter() - t0, 3)
+    recorder.record('restore.done', n=summary['docs'],
+                    detail='%.3fs corrupt=%d failed=%d'
+                           % (summary['elapsed_s'], len(summary['corrupt']),
+                              len(summary['failed'])))
     return summary
 
 
@@ -1794,6 +1882,18 @@ def _raise_shard_errors(errors):
         '%d shards failed: ' % len(errors) +
         '; '.join('[shard %d] %s: %s' % (s, type(e).__name__, e)
                   for s, e in errors)) from errors[0][1]
+
+
+def load_runtime(device):
+    """Builds and loads the C++ core and, for a card device, every CUDA
+    kernel (one `nvcc` per source, all at once) on the calling thread,
+    so that no request a server answers waits on a build."""
+    lib()
+    device = torch.device(device)
+    if device.type == 'cuda':
+        from ..ops import _build
+        _build.build_all()
+        _load_kernels(device)
 
 
 def _load_kernels(device):
@@ -1883,7 +1983,10 @@ class ShardedNativePool:
 
     def apply_batch_bytes(self, payload):
         """msgpack {doc_id: [change...]} -> msgpack {doc_id: patch}, the
-        shards' maps concatenated in shard order."""
+        shards' maps concatenated in shard order (the `sharded` batch
+        latency series; threads mode's shard calls land under
+        `native`)."""
+        t_batch = time.perf_counter()
         L = lib()
         self.pools       # build the shards and load the kernels here
         with trace.span('shard.split'):
@@ -1917,7 +2020,10 @@ class ShardedNativePool:
             n, off = read_map_header(r)
             total += n
             bodies.append(memoryview(r)[off:])
-        return map_header(total) + b''.join(bodies)
+        out = map_header(total) + b''.join(bodies)
+        telemetry.observe_batch('sharded', time.perf_counter() - t_batch,
+                                docs=read_map_header(payload)[0])
+        return out
 
     def _run(self, subs):
         if self.mode == 'pipeline':

@@ -36,7 +36,8 @@ import time
 
 import msgpack
 
-from . import faults, trace
+from . import faults, telemetry, trace
+from .telemetry import recorder
 from .errors import AutomergeError
 from .utils import map_header, read_map_header
 
@@ -111,9 +112,11 @@ def apply_payload(pool, payload, first_exc=None):
         try:
             return pool.apply_batch_bytes(payload)
         except Exception as e:
-            # the JAX package dumps its flight recorder here on a
-            # state-suspect failure; that layer waits for its slice
             if not should_isolate(e):
+                if getattr(e, 'amtpu_state_suspect', False):
+                    recorder.record('resilience.state_suspect',
+                                    detail=type(e).__name__)
+                    recorder.dump('state_suspect')
                 raise
             first_exc = e
     if isinstance(payload, tuple):   # zero-copy shard view: materialize
@@ -153,15 +156,20 @@ def _apply_group(pool, keyed, doc_list, parts, pending_exc=None):
                 return
             except Exception as e:
                 # isolation has begun: only a state-suspect failure
-                # still re-raises (the JAX package also records it in
-                # its flight recorder, which waits for its slice)
+                # still re-raises
                 if getattr(e, 'amtpu_state_suspect', False):
+                    recorder.record('resilience.state_suspect',
+                                    n=len(doc_list),
+                                    detail=type(e).__name__)
+                    recorder.dump('state_suspect')
                     raise
                 exc = e
         if faults.is_transient(exc) and attempts_left > 0:
             attempts_left -= 1
             retried = True
             trace.metric('resilience.retry.attempts')
+            recorder.record('resilience.retry', n=len(doc_list),
+                            detail=type(exc).__name__)
             time.sleep(delay)
             delay = min(delay * 2, _BACKOFF_CAP_S)
             exc = None
@@ -171,6 +179,7 @@ def _apply_group(pool, keyed, doc_list, parts, pending_exc=None):
         trace.metric('resilience.retry.exhausted')
     if len(doc_list) > 1:
         trace.metric('resilience.bisect.rounds')
+        recorder.record('resilience.bisect', n=len(doc_list))
         mid = len(doc_list) // 2
         _apply_group(pool, keyed, doc_list[:mid], parts)
         _apply_group(pool, keyed, doc_list[mid:], parts)
@@ -180,14 +189,19 @@ def _apply_group(pool, keyed, doc_list, parts, pending_exc=None):
         try:
             _append_raw(parts, _apply_degraded(pool, key, keyed[key]))
             trace.metric('resilience.degraded')
+            telemetry.note_degraded()
             return
         except Exception as e:
             if getattr(e, 'amtpu_state_suspect', False):
                 raise
             exc = e
     trace.metric('resilience.quarantined')
-    # the JAX package stamps and dumps its flight recorder and marks its
-    # health state degraded here: telemetry layers not yet ported
+    telemetry.note_degraded()
+    # the quarantine is the post-mortem moment: stamp the event and dump
+    # the ring around it (rate-limited per reason)
+    recorder.record('resilience.quarantine', doc=key,
+                    detail=type(exc).__name__)
+    recorder.dump('quarantine')
     parts.append((1, msgpack.packb(key, use_bin_type=True) +
                   msgpack.packb(error_envelope(exc), use_bin_type=True)))
 

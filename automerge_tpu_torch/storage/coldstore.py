@@ -32,7 +32,7 @@ import threading
 
 import msgpack
 
-from .. import faults, trace
+from .. import faults, telemetry, trace
 
 #: per-dir manifest file name (durable mode)
 MANIFEST = 'manifest.amtm'
@@ -306,12 +306,14 @@ class DocEvictor(object):
             self.store.discard(d)
             self._lru[d] = True
             self._lru.move_to_end(d)
-        # the JAX package also logs reloads to its flight recorder, a
-        # telemetry layer that waits for its slice
         if ok:
             trace.metric('storage.reloads', len(ok))
+            telemetry.recorder.record('storage.reload', n=len(ok))
         if failed:
             trace.metric('storage.reload_failed', len(failed))
+            telemetry.recorder.record(
+                'storage.reload', n=len(failed),
+                doc=next(iter(failed)), detail='failed')
         return failed
 
     def note_touch(self, docs):
@@ -370,7 +372,10 @@ class DocEvictor(object):
             self._gc_debt.pop(doc, None)
             evicted += 1
             freed += doc_bytes
-            # the JAX package logs each eviction to its flight recorder
+            telemetry.recorder.record('storage.evict', doc=doc,
+                                      n=doc_bytes,
+                                      detail='pressure' if pressure
+                                      else None)
         if evicted:
             trace.metric('storage.evictions', evicted)
             trace.metric('storage.evicted_bytes', freed)

@@ -1,25 +1,30 @@
-"""Process-wide counters and phase timers.
+"""Process-wide counters and phase timers, a shim over `telemetry`.
 
-`metric(name, n)` adds to an always-on counter (the fallback counts
-`fallback.oracle` / `fallback.overflow_batches` and the kernel launch
-counts `launch.<kernel>` live here); `span(name)` adds the wall time of a
-block to `<name>` in the span table, and `add(name, seconds)` a duration
-measured elsewhere (the C++ stage times `cxx.*`).  Both tables are read with
-`snapshot()` and cleared with `reset()`.
+`metric(name, n)` adds to the always-on flat counter map of
+`automerge_tpu_torch.telemetry` (the fallback counts `fallback.oracle` /
+`fallback.overflow_batches`, the kernel launch counts `launch.<kernel>`,
+the `resilience.*` counts), so `telemetry.metrics_snapshot()`, the
+`healthz` payload and the Prometheus exposition read the same numbers
+this module does.  `span(name)` adds the wall time of a block to
+`<name>` in an always-on span table, and `add(name, seconds)` a duration
+measured elsewhere (the C++ stage times `cxx.*`); while span tracing is
+enabled (`telemetry.enable()`) both also feed telemetry's phase
+occupancy table.  Both tables are read with `snapshot()` and cleared
+with `reset()`.
 """
 
 import contextlib
 import threading
 import time
 
+from . import telemetry as _t
+
 _lock = threading.Lock()
-_metrics = {}
 _spans = {}
 
 
 def metric(name, n=1):
-    with _lock:
-        _metrics[name] = _metrics.get(name, 0) + n
+    _t.metric(name, n)
 
 
 @contextlib.contextmanager
@@ -34,20 +39,21 @@ def span(name):
 def add(name, seconds):
     with _lock:
         _spans[name] = _spans.get(name, 0.0) + seconds
+    _t.phase_add(name, seconds)
 
 
 def snapshot():
     """{'metrics': {...}, 'spans': {...}} copies of both tables."""
     with _lock:
-        return {'metrics': dict(_metrics), 'spans': dict(_spans)}
+        spans = dict(_spans)
+    return {'metrics': _t.metrics_snapshot(), 'spans': spans}
 
 
 def metrics():
-    with _lock:
-        return dict(_metrics)
+    return _t.metrics_snapshot()
 
 
 def reset():
+    _t.metrics_reset()
     with _lock:
-        _metrics.clear()
         _spans.clear()

@@ -99,6 +99,26 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      each path is timed, and of the 64-pool catch-up and the fault lanes
      the first batch's member calls).
 
+  12. serves the Backend protocol from the card (run before the checks of
+     phase 11, which hold its kernel calls bit-equal too): (a) 32
+     connections x 6 rounds of the serve-check traffic against a real
+     `python -m automerge_tpu_torch.sidecar.server --socket` subprocess,
+     every response equal to the same traffic sent serially to a CPU
+     gateway, median occupancy over 4 docs a flush, the queue drained, no
+     oracle row and no live handle (single-writer registers resolve on
+     the host: no kernel); then in-process card gateways, each lane's
+     responses or frames equal to a CPU gateway's on the same traffic:
+     (b) a queue of 8 ops sheds a burst with typed Overloaded envelopes
+     and recovers; (c) 256 config-3 docs in apply_batch requests of 32
+     from 8 connections (K1 + K2), then a 40-writer hot key (K3), oracle
+     0; (d) `bench.py --fanout` at its defaults (1,024 peers, 24 docs,
+     16 connections, 96 writes): every connection's frames, change->
+     fan-out p50/p95/p99, amplification, encode reuse (K2); (e) one doc
+     x 200 subscribers with a straggler and a patch-mode peer: encode
+     reuse at least 199, no echo, patch frames, and the doc's `snapshot`
+     loaded into a card pool equal to the replay of its history, the
+     second fetch a cache hit.
+
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
 last three lines are the kernel table (JSON), the card's name and power
@@ -112,6 +132,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -1064,6 +1085,417 @@ def coldstart_phase(torch, card, workloads, native, drive, K1, K2):
     return result
 
 
+#: the serving phase (12): lane (a)'s connections and rounds, lane (c)'s
+#: fan-in docs, connections and docs a request, and `bench.py --fanout`'s
+#: defaults for lane (d)
+SERVE_CONNS, SERVE_ROUNDS = 32, 6
+FANIN_DOCS, FANIN_CONNS, FANIN_PER_REQ = 256, 8, 32
+FANOUT_BENCH = {'n_peers': 1024, 'n_docs': 24, 'n_rounds': 96,
+                'zipf_s': 1.2, 'seed': 7}
+FANOUT_CONNS = 16
+
+
+def _prom_counter(body, name):
+    import re
+    m = re.search(r'^amtpu_runtime_counter\{name="%s"\} (\S+)$'
+                  % re.escape(name), body, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _gateway(device, path, **kw):
+    from automerge_tpu_torch.scheduler import GatewayServer
+    from automerge_tpu_torch.sidecar.server import SidecarBackend
+    return GatewayServer(path, backend=SidecarBackend(device=device),
+                         **kw).start()
+
+
+def _on_gateway(device, path, fn, **kw):
+    """fn() against a fresh in-process gateway over a fresh pool on
+    `device`; the gateway is stopped, and no C++ batch handle may be left
+    live, when fn returns."""
+    from automerge_tpu_torch import native
+    gw = _gateway(device, path, **kw)
+    try:
+        return fn()
+    finally:
+        gw.stop()
+        if native.live_batch_handles():
+            raise AssertionError('%s: %d live batch handles after the lane'
+                                 % (path, native.live_batch_handles()))
+
+
+def _flush_shares(telemetry, spans, busy_s):
+    """Where a lane's pool batches spent their wall: flushes, mean docs a
+    flush, the `native` batch latency sum, and three shares of it: the
+    host's wait on the card's results (`device.collect`, a host clock),
+    the card's span between the CUDA events around each dispatch
+    (`telemetry.DEVTIME`: device time, idle gaps while the host enqueues
+    included) and the card's busy time (`busy_s`, from the profiler)."""
+    occ = telemetry.BATCH_OCCUPANCY.summary() or {}
+    lat = (telemetry.BATCH_LATENCY.snapshot() or {}).get('native') or {}
+    flat = telemetry.metrics_snapshot()
+    wall = lat.get('sum', 0.0)
+    n = occ.get('count', 0)
+    out = {'flushes': n, 'docs': occ.get('sum', 0.0) / n if n else 0.0,
+           'batch_wall_s': wall,
+           'host_wait_s': spans.get('device.collect', 0.0),
+           'span_s': flat.get('device.dispatch_sync_s', 0.0),
+           'dispatches': int(flat.get('device.dispatches', 0)),
+           'busy_s': busy_s}
+    for k in ('host_wait', 'span', 'busy'):
+        v = out[k + '_s']
+        out[k + '_share'] = None if v is None or not wall else v / wall
+    return out
+
+
+def _shares_text(sh):
+    def one(k):
+        if sh[k + '_s'] is None:
+            return 'not measured'
+        return '%.4f s (%.4f)' % (sh[k + '_s'], sh[k + '_share'])
+    return ('%d flushes, %.1f docs a flush, batch wall %.4f s; host wait '
+            'on the card (device.collect) %s, card span between CUDA '
+            'events %s over %d dispatches, card busy (profiler: kernels, '
+            'copies, fills) %s' % (
+                sh['flushes'], sh['docs'], sh['batch_wall_s'],
+                one('host_wait'), one('span'), sh['dispatches'],
+                one('busy')))
+
+
+def card_busy(torch, fn):
+    """(fn(), its wall seconds, the seconds the card was busy while it
+    ran): busy is the union of the kernel, copy and fill intervals in
+    torch.profiler's CUDA activity, from any thread of the process (None
+    when the profiler saw none); the wall leaves out the profiler's own
+    processing after fn."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return out, wall, None
+    busy, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return out, wall, busy / 1e6
+
+
+def serving_phase(card, root, workloads, drive, K1, K2, K3):
+    """Phase 12: the port's server on the card.  Lane (a) runs against a
+    real `python -m automerge_tpu_torch.sidecar.server --socket`
+    subprocess, lanes (b) to (e) against in-process card gateways; each
+    lane's card responses and frames must equal a CPU gateway's on the
+    same traffic."""
+    import random as _random
+    import shutil
+    import tempfile
+
+    import msgpack
+    import torch
+    import torch_serving_cases as S
+
+    from automerge_tpu_torch import native, telemetry
+    from automerge_tpu_torch.native import NativeDocPool
+    from automerge_tpu_torch.scheduler import AdmissionQueue
+    from automerge_tpu_torch.scheduler import queue as gw_queue
+
+    work = tempfile.mkdtemp(prefix='amgw-')
+    cwd = os.getcwd()
+    # unix socket paths are short (108 bytes): bind relative names
+    os.chdir(work)
+    t_phase = time.perf_counter()
+    try:
+        # -- (a) the serve-check shape, a server subprocess ---------------
+        env = dict(os.environ, PYTHONPATH=root)
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'automerge_tpu_torch.sidecar.server',
+             '--socket', 'a.sock'], env=env, cwd=work)
+        try:
+            t0 = time.perf_counter()
+            S.wait_for_socket('a.sock', 300, proc)
+            log('serve a: server subprocess up in %.1f s on %s'
+                % (time.perf_counter() - t0, card))
+            (patches, finals, errors), wall_a, _ = drive(
+                'serve a card', lambda: S.concurrent_stream(
+                    'a.sock', SERVE_CONNS, SERVE_ROUNDS), need=())
+            if errors:
+                raise AssertionError('serve a: clients failed: %s' % errors)
+            with S.RawConn('a.sock') as c:
+                health = c.result({'cmd': 'healthz'})
+                body = c.result({'cmd': 'metrics'})['body']
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        want = _on_gateway('cpu', 'a-cpu.sock', lambda: S.serial_stream(
+            'a-cpu.sock', SERVE_CONNS, SERVE_ROUNDS))
+        if (patches, finals) != want:
+            raise AssertionError('serve a: card responses differ from the '
+                                 'CPU gateway\'s serial run')
+        sched = health['scheduler']
+        occ = sched['occupancy']
+        trivial = _prom_counter(body, 'sched.trivial_rows')
+        if not occ['p50'] > 4:
+            raise AssertionError('serve a: median occupancy %r' % occ)
+        if sched['fallback_oracle'] or sched['live_batch_handles'] or \
+                sched['depth_ops'] or sched['queued'] or sched['shedding']:
+            raise AssertionError('serve a: not drained: %r' % sched)
+        if trivial <= 0:
+            raise AssertionError('serve a: no trivial rows counted')
+        log('serve a: %d conns x %d rounds in %.3f s, responses equal to '
+            'the CPU gateway\'s serial run; occupancy %s docs/flush; queue '
+            'wait %s ms; no kernel expected: single-writer registers go '
+            'to the host (sched.trivial_rows %d) on %s' % (
+                SERVE_CONNS, SERVE_ROUNDS, wall_a, occ,
+                sched['queue_wait_ms'], trivial, card))
+
+        # -- (b) overload -------------------------------------------------
+        deadline_ms = gw_queue.FLUSH_DEADLINE_MS
+        gw_queue.FLUSH_DEADLINE_MS = 25.0
+
+        def lane_b():
+            out = S.overload_burst('b.sock')
+            with S.RawConn('b.sock') as c:
+                until = time.monotonic() + 60
+                while True:
+                    resp = json.loads(c.call({
+                        'cmd': 'apply_changes', 'doc': 'after',
+                        'changes': [S.set_change('z', 1, 'k', 1)]}))
+                    if resp.get('errorType') != 'Overloaded':
+                        break
+                    if time.monotonic() > until:
+                        raise AssertionError('serve b: never recovered')
+                    time.sleep(0.05)
+                return out, resp, c.result({'cmd': 'healthz'})
+        try:
+            (out, resp, health), wall_b, _ = drive(
+                'serve b overload card', lambda: _on_gateway(
+                    'cuda', 'b.sock', lane_b, queue=AdmissionQueue(
+                        max_ops=8)), need=())
+        finally:
+            gw_queue.FLUSH_DEADLINE_MS = deadline_ms
+        shed = [r for r in out if 'error' in r]
+        if not shed or any(r['errorType'] != 'Overloaded'
+                           or r['retryAfterMs'] < 1 for r in shed) or \
+                resp['result']['clock'] != {'z': 1} or not health['ok']:
+            raise AssertionError('serve b: %r / %r' % (out, resp))
+        log('serve b: %d of %d burst requests shed with Overloaded '
+            '(retryAfterMs %d), the rest applied; healthz and a fresh '
+            'write answered after the burst; %.3f s on %s' % (
+                len(shed), len(out), shed[0]['retryAfterMs'], wall_b, card))
+
+        # -- (c) fan-in through the gateway: K1 + K2, then K3 -------------
+        batch = workloads.build_config_3(_random.Random(11),
+                                         n_docs=FANIN_DOCS)
+        keys = sorted(batch, key=str)
+        reqs = [{str(k): batch[k] for k in keys[i:i + FANIN_PER_REQ]}
+                for i in range(0, len(keys), FANIN_PER_REQ)]
+        hot = [{str(k): v for k, v in b.items()}
+               for b in workloads.hot_key_batch(40)]
+
+        def fan_in(path):
+            out, errors = [None] * len(reqs), []
+            barrier = threading.Barrier(FANIN_CONNS, timeout=120)
+
+            def send(ci):
+                try:
+                    with S.RawConn(path, 300) as c:
+                        barrier.wait()
+                        for r in range(ci, len(reqs), FANIN_CONNS):
+                            out[r] = c.call({'id': r, 'cmd': 'apply_batch',
+                                             'docs': reqs[r]})
+                except Exception as e:
+                    errors.append('%s: %s' % (type(e).__name__, e))
+            threads = [threading.Thread(target=send, args=(ci,))
+                       for ci in range(FANIN_CONNS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if errors:
+                raise AssertionError('serve c: %s' % errors)
+            return out
+
+        def hot_key(path):
+            with S.RawConn(path, 300) as c:
+                return [c.call({'id': i, 'cmd': 'apply_batch', 'docs': b})
+                        for i, b in enumerate(hot)]
+
+        def lane_c(path):
+            telemetry.reset_all()
+            (got, wall, busy), _, m = drive(
+                'serve c fan-in card', lambda: card_busy(
+                    torch, lambda: fan_in(path)), need=(K1, K2), waves=None)
+            shares = _flush_shares(telemetry, m, busy)
+            got_hot, _, mh = drive('serve c hot key card',
+                                   lambda: hot_key(path), need=(K3,))
+            return got, wall, m, shares, got_hot, mh
+        # the card lanes (c) and (d) time every dispatch between CUDA
+        # events and run under the profiler
+        telemetry.DEVTIME = True
+        try:
+            got, wall_c, m_c, shares, got_hot, m_hot = _on_gateway(
+                'cuda', 'c.sock', lambda: lane_c('c.sock'))
+        finally:
+            telemetry.DEVTIME = False
+        want = _on_gateway('cpu', 'c-cpu.sock', lambda: (
+            fan_in('c-cpu.sock'), hot_key('c-cpu.sock')))
+        if got != want[0] or got_hot != want[1]:
+            raise AssertionError('serve c: card responses differ from the '
+                                 'CPU gateway\'s')
+        if any('error' in json.loads(r) for r in got + got_hot):
+            raise AssertionError('serve c: an error envelope')
+        tiers = {k: v for k, v in m_hot.items()
+                 if k.startswith('fallback.escalated.w')}
+        log('serve c: %d docs of config 3 in %d apply_batch requests from '
+            '%d connections, %d ops, in %.3f s: %d waves, launches K1 %d '
+            'K2 %d; %s; hot key of 40 writers: K3 %d, tiers %s, oracle 0; '
+            'responses equal to the CPU gateway\'s on %s' % (
+                FANIN_DOCS, len(reqs), FANIN_CONNS, workloads.op_count(batch),
+                wall_c, m_c.get('pipeline.waves', 0), m_c.get(K1, 0),
+                m_c.get(K2, 0), _shares_text(shares), m_hot.get(K3, 0), tiers,
+                card))
+
+        # -- (d) bench.py --fanout at its defaults ------------------------
+        traffic = S.fanout_bench_traffic(workloads.text_doc_changes,
+                                         **FANOUT_BENCH)
+
+        def lane_d():
+            telemetry.reset_all()
+            ((frames, expected, wall), _, busy), _, m = drive(
+                'serve d fanout card', lambda: card_busy(
+                    torch, lambda: S.run_fanout_bench(
+                        'd.sock', traffic, FANOUT_CONNS)), need=(K2,),
+                waves=None)
+            snap = telemetry.metrics_snapshot()
+            return frames, expected, wall, m, snap, \
+                telemetry.FANOUT_LATENCY.summary() or {}, \
+                _flush_shares(telemetry, m, busy)
+        telemetry.DEVTIME = True
+        try:
+            frames, expected, wall_d, m_d, snap, lat, shares_d = \
+                _on_gateway('cuda', 'd.sock', lane_d)
+        finally:
+            telemetry.DEVTIME = False
+        cpu_frames = _on_gateway('cpu', 'd-cpu.sock', lambda: (
+            S.run_fanout_bench('d-cpu.sock', traffic, FANOUT_CONNS)[0]))
+        n_frames = sum(len(f) for f in frames)
+        if n_frames != expected or snap.get('sync.fanout.frames', 0) \
+                < expected:
+            raise AssertionError('serve d: %d frames drained, %s sent, %d '
+                                 'expected' % (n_frames, snap.get(
+                                     'sync.fanout.frames'), expected))
+        if frames != cpu_frames:
+            raise AssertionError('serve d: card frames differ from the CPU '
+                                 'gateway\'s')
+        enc = snap.get('sync.fanout.bytes_encoded', 0)
+        wire = snap.get('sync.fanout.bytes_on_wire', 0)
+        log('serve d: bench --fanout defaults (%d peers, %d docs, %d conns, '
+            '%d write rounds, zipf %.1f): %d frames, every connection\'s '
+            'frames (all %d peers, not a sample) equal to the CPU '
+            'gateway\'s; change->fan-out p50 %s p95 %s p99 %s ms; '
+            'amplification %.2f; write wall %.3f s; encode_reuse %d; '
+            'launches K1 %d K2 %d; %s on %s' % (
+                FANOUT_BENCH['n_peers'], FANOUT_BENCH['n_docs'],
+                FANOUT_CONNS, FANOUT_BENCH['n_rounds'],
+                FANOUT_BENCH['zipf_s'], n_frames, FANOUT_BENCH['n_peers'],
+                lat.get('p50'), lat.get('p95'), lat.get('p99'),
+                wire / enc if enc else 0.0, wall_d,
+                snap.get('sync.fanout.encode_reuse', 0), m_d.get(K1, 0),
+                m_d.get(K2, 0), _shares_text(shares_d), card))
+
+        # -- (e) the fanout-check shape, then snapshot reads --------------
+        def lane_e(path):
+            subs = S.fanout_subscribers(path, 'hot-doc', 8, 25)
+            thin = S.RawConn(path)
+            thin.result({'cmd': 'subscribe', 'doc': 'hot-doc', 'clock': {},
+                         'peer': 'thin', 'mode': 'patch'})
+            writer = S.RawConn(path)
+            writer.result({'cmd': 'subscribe', 'doc': 'hot-doc',
+                           'clock': {}, 'peer': 'writer'})
+            late = S.RawConn(path)
+            chs = [S.set_change('writer', s, 'k%d' % (s % 3), s)
+                   for s in range(1, 7)]
+            reuse0 = telemetry.metrics_snapshot().get(
+                'sync.fanout.encode_reuse', 0)
+            for s, ch in enumerate(chs, 1):
+                writer.result({'cmd': 'apply_changes', 'doc': 'hot-doc',
+                               'changes': [ch]})
+                if s == 3:
+                    late.result({'cmd': 'subscribe', 'doc': 'hot-doc',
+                                 'clock': {'writer': 1}, 'peer': 'late',
+                                 'backfill': False})
+            for c in subs:
+                c.wait_events(25 * len(chs))
+            thin.wait_events(len(chs))
+            late.wait_events(3)
+            writer.result({'cmd': 'ping'})
+            reuse = telemetry.metrics_snapshot().get(
+                'sync.fanout.encode_reuse', 0) - reuse0
+            snaps = [writer.result({'cmd': 'snapshot', 'doc': 'hot-doc'})
+                     for _ in range(2)]
+            hits = telemetry.metrics_snapshot().get(
+                'readview.snapshot_hits', 0)
+            frames = [c.events for c in subs + [thin, late, writer]]
+            for c in subs + [thin, late, writer]:
+                c.close()
+            return frames, reuse, snaps, hits, chs
+        (frames_e, reuse, snaps, hits, chs), wall_e, _ = drive(
+            'serve e fanout-check card', lambda: _on_gateway(
+                'cuda', 'e.sock', lambda: lane_e('e.sock')), need=())
+        cpu_e = _on_gateway('cpu', 'e-cpu.sock',
+                            lambda: lane_e('e-cpu.sock'))
+        if frames_e != cpu_e[0]:
+            raise AssertionError('serve e: card frames differ from the CPU '
+                                 'gateway\'s')
+        kinds = [json.loads(f)['event'] for f in frames_e[8]]
+        if reuse < 199 or frames_e[10] or kinds != ['patch'] * len(chs) \
+                or json.loads(frames_e[9][0])['changes'][0]['seq'] != 2:
+            raise AssertionError('serve e: reuse %d, writer echo %d, thin '
+                                 'kinds %s' % (reuse, len(frames_e[10]),
+                                               kinds))
+        if snaps[0] != snaps[1] or hits < 1:
+            raise AssertionError('serve e: the second snapshot missed the '
+                                 'cache')
+        import base64
+        loaded = NativeDocPool()
+        got_patch = loaded.load('x', base64.b64decode(
+            snaps[0]['snapshot_b64']))
+        replay = NativeDocPool()
+        replay.apply_changes('x', chs)
+        if msgpack.packb(got_patch) != msgpack.packb(replay.get_patch('x')):
+            raise AssertionError('serve e: the snapshot loaded on the card '
+                                 'differs from the replay of its history')
+        log('serve e: 1 doc x 200 subscribers + a straggler + a patch-mode '
+            'peer, %d writes in %.3f s: encode_reuse %d, no echo, %d patch '
+            'frames, frames equal to the CPU gateway\'s; snapshot %d B '
+            'loaded into a card pool equals the replay, second fetch a '
+            'cache hit on %s' % (
+                len(chs), wall_e, reuse, len(kinds),
+                len(base64.b64decode(snaps[0]['snapshot_b64'])), card))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    if native.live_batch_handles():
+        raise AssertionError('serving: live batch handles left')
+    log('serving phase: %.1f s wall on %s' % (time.perf_counter() - t_phase,
+                                               card))
+
+
 def patch_slices(buf):
     """{doc key: raw patch bytes} of a batch result map."""
     import msgpack
@@ -1444,6 +1876,11 @@ def run(torch):
     # -- phase 10: the long document, resident route and route off -----
     resident = resident_phase(torch, card, workloads, native, NativeDocPool,
                               R, drive, K1, K2)
+
+    # -- phase 12: the port's server on the card (before the checks of
+    # phase 11, which hold its kernel calls against the plain versions) --
+    serving_phase(card, os.path.dirname(os.path.abspath(__file__)),
+                  workloads, drive, K1, K2, K3)
 
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:

@@ -1,5 +1,5 @@
 """automerge_tpu_torch stands alone: no module of the package, no line
-of chip_smoke.py and nothing of the test helper it imports pulls in JAX
+of chip_smoke.py and nothing of the test helpers it imports pulls in JAX
 or the JAX package, and the pool's default device is CUDA, with no
 silent fallback to the CPU."""
 
@@ -16,7 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, 'automerge_tpu_torch', '**',
                                       '*.py'), recursive=True)) + \
     [os.path.join(ROOT, 'chip_smoke.py'),
-     os.path.join(ROOT, 'tests', 'torch_member_cases.py')]
+     os.path.join(ROOT, 'tests', 'torch_member_cases.py'),
+     os.path.join(ROOT, 'tests', 'torch_serving_cases.py')]
 
 
 def _forbidden(name):
