@@ -1887,13 +1887,17 @@ def _raise_shard_errors(errors):
 def load_runtime(device):
     """Builds and loads the C++ core and, for a card device, every CUDA
     kernel (one `nvcc` per source, all at once) on the calling thread,
-    so that no request a server answers waits on a build."""
+    and creates torch's CUDA context, so that no request a server
+    answers waits on a build or on the context, and a server that
+    cannot use its card fails before it binds."""
     lib()
     device = torch.device(device)
     if device.type == 'cuda':
         from ..ops import _build
         _build.build_all()
         _load_kernels(device)
+        torch.empty(1, device=device)
+        torch.cuda.synchronize(device)
 
 
 def _load_kernels(device):

@@ -11,8 +11,10 @@
 
 `events.py` holds the typed client-side event objects
 `SidecarClient.next_event()` demuxes into (dict subclasses, so
-``ev['event']`` consumers are untouched).  The materialized read
-replica of the JAX package is not ported yet.
+``ev['event']`` consumers are untouched).  `replica.py` holds the
+materialized read replica (`ReadReplica`): a subscriber that applies
+an upstream gateway's fan-out stream into its own pool and serves reads
+on a read-only gateway.
 """
 
 from .events import (ChangeEvent, PatchEvent, PresenceEvent,  # noqa: F401

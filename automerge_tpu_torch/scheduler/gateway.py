@@ -312,7 +312,8 @@ class GatewayServer(object):
     """
 
     def __init__(self, sock_path, use_msgpack=False, backend=None,
-                 queue=None, backlog=128):
+                 queue=None, backlog=128, sync_dir=None,
+                 read_only=False):
         if backend is None:
             from ..sidecar.server import SidecarBackend
             backend = SidecarBackend()
@@ -321,6 +322,20 @@ class GatewayServer(object):
         self.backend = backend
         self.queue = queue if queue is not None else AdmissionQueue()
         self.backlog = backlog
+        # read-only listener: a materialized read replica serves
+        # get_patch/snapshot/healthz off its own pool but must refuse
+        # mutations -- writes belong to the authoritative gateway
+        # (readview/replica.py applies upstream fan-out frames
+        # in-process, under pool_lock, never through the socket)
+        self.read_only = read_only
+        # write-through checkpointing: with a `sync_dir` (the server's
+        # --sync passes its --storage-dir; '' is the store's default
+        # directory), every acked mutation is saved to a durable
+        # ColdStore BEFORE the response goes out, so "acked" implies
+        # "restorable" -- the property fleet failover's byte parity
+        # rests on
+        self._sync_dir = sync_dir
+        self._sync_store = None
         # one pool, many threads: inline reads and the dispatcher's
         # flushes serialize on this lock (the C++ pool and its CUDA
         # stream are driven single-threaded, as they always were)
@@ -361,8 +376,11 @@ class GatewayServer(object):
                                            self._healthz_section)
         telemetry.register_healthz_section('egress',
                                            self._egress_healthz_section)
-        from ..storage.coldstore import DocEvictor
-        self.storage_tier = DocEvictor(self.backend.pool)
+        from ..storage import coldstore
+        self.storage_tier = coldstore.DocEvictor(self.backend.pool)
+        if self._sync_dir is not None:
+            self._sync_store = coldstore.ColdStore(self._sync_dir or None,
+                                                   durable=True)
         telemetry.register_healthz_section(
             'storage', self.storage_tier.healthz_section)
         telemetry.register_healthz_section('fanout',
@@ -539,6 +557,18 @@ class GatewayServer(object):
         rid = req.get('id')
         if cmd in PURE_CMDS:
             conn.send(self.backend.handle(req))
+            return
+        if self.read_only and (cmd in BATCH_CMDS or cmd in EXEC_CMDS
+                               or cmd in ROUTER_CMDS):
+            # a read replica's listener refuses mutations with a typed
+            # envelope naming the reason -- silently applying them
+            # would fork the replica's view from the authoritative doc
+            telemetry.metric('readview.read_only_refused')
+            conn.send({'id': rid,
+                       'error': '%s refused: this is a read-only '
+                                'replica (writes go to the '
+                                'authoritative gateway)' % cmd,
+                       'errorType': 'ReadOnly'})
             return
         if cmd in ROUTER_CMDS:
             docs = req.get('docs')
@@ -955,6 +985,10 @@ class GatewayServer(object):
         for op in ops:
             if op.clock is not None:
                 op.clock.mark_split('dispatch', 'collect', collect_s)
+        # write-through: checkpoint every mutated doc BEFORE any
+        # response goes out -- an acked change must be restorable
+        if self._sync_store is not None:
+            self._sync_save(list(merged))
         flush_id = getattr(fsp, 'span_id', None)
         for op in ops:
             if op.cmd == 'apply_changes':
@@ -1019,6 +1053,9 @@ class GatewayServer(object):
         resp = self.backend.handle(op.req)
         if op.clock is not None:
             op.clock.mark('dispatch')
+        if self._sync_store is not None and 'error' not in resp \
+                and op.cmd in BATCH_CMDS + EXEC_CMDS:
+            self._sync_save(op.docs)
         if fan is not None and op.cmd in BATCH_CMDS + EXEC_CMDS:
             if 'error' not in resp:
                 result = resp.get('result')
@@ -1254,6 +1291,25 @@ class GatewayServer(object):
         telemetry.recorder.record('migrate.out', n=len(order),
                                   detail=str(new_owner))
         return {'migrated': order, 'failed': failed, 'bytes': nbytes}
+
+    def _sync_save(self, docs):
+        """Write-through checkpoint (`sync_dir`): saves each
+        just-mutated doc into the durable sync store in one batched
+        manifest commit.  Runs pre-ack under pool_lock; a per-doc save
+        failure only skips that doc (counted) -- the response path is
+        never the place to invent new errors for committed changes."""
+        blobs = {}
+        for d in docs:
+            try:
+                blobs[doc_key(d)] = self.backend.pool.save(d)
+            except Exception:
+                telemetry.metric('storage.sync_failed')
+        if blobs:
+            try:
+                self._sync_store.put_many(blobs)
+                telemetry.metric('storage.sync_saves', len(blobs))
+            except Exception:
+                telemetry.metric('storage.sync_failed', len(blobs))
 
     def _migrate_in(self, docs, store_dir, ring_version):
         """Restores the named docs from the handoff manifest via the

@@ -96,6 +96,7 @@ import time
 
 from .. import faults, telemetry
 from ..errors import AutomergeError, RangeError
+from ..storage import coldstore
 from ..telemetry import httpd as telemetry_httpd
 
 
@@ -374,8 +375,28 @@ def main(argv=None):
     ap.add_argument('--restarts', type=int, default=0,
                     help='respawns the supervising client has made so '
                          'far (healthz `restarts`)')
+    ap.add_argument('--replica-id', default='',
+                    help='this replica\'s name in a fleet (healthz, '
+                         'the metrics listener and the flight recorder '
+                         'report it; default: host:pid)')
+    ap.add_argument('--storage-dir', default='',
+                    help='root of this server\'s cold store (eviction, '
+                         'write-through; default: a fresh tempdir)')
+    ap.add_argument('--durable', action='store_true',
+                    help='the cold store fsyncs every blob and keeps a '
+                         'manifest (durable mode)')
+    ap.add_argument('--trace-file', default='',
+                    help='export spans as JSONL to this path (the input '
+                         'of amtpu_trace)')
+    ap.add_argument('--sync', action='store_true',
+                    help='socket mode: write-through -- every acked '
+                         'mutation is saved to a durable store under '
+                         '--storage-dir before its response')
     args = ap.parse_args(argv)
     telemetry.RESTARTS = args.restarts
+    telemetry.REPLICA_ID = args.replica_id
+    coldstore.STORAGE_DIR = args.storage_dir
+    coldstore.STORAGE_DURABLE = args.durable
     try:
         # the pool and its runtime come up before any socket binds
         backend = SidecarBackend(device=args.device)
@@ -385,6 +406,8 @@ def main(argv=None):
 
     if args.trace:
         telemetry.enable()
+    if args.trace_file:
+        telemetry.set_trace_file(args.trace_file)
     if args.metrics_port >= 0:
         srv = telemetry_httpd.start_metrics_server(args.metrics_port,
                                                    host=args.metrics_host)
@@ -428,7 +451,9 @@ def main(argv=None):
         # admission control past the queue watermark
         from ..scheduler import GatewayServer
         gw = GatewayServer(args.socket, use_msgpack=args.msgpack,
-                           backend=backend)
+                           backend=backend,
+                           sync_dir=args.storage_dir if args.sync
+                           else None)
         cleanup.append(gw.stop)
         try:
             gw.serve_forever()

@@ -118,6 +118,31 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      reuse at least 199, no echo, patch frames, and the doc's `snapshot`
      loaded into a card pool equal to the replay of its history, the
      second fetch a cache hit.
+  13. runs the port's fleet (after phase 12, before the checks of phase
+     11, which hold its in-process kernel calls too): (a) three
+     `--device cuda` replica server subprocesses behind an in-process
+     `RouterGateway`, `tools/route_check.py`'s traffic (18 docs, zipf,
+     6 writers, 160 requests): every response and final patch equal to
+     one CPU gateway's serial replay, oracle 0 on every replica, then
+     `Rebalancer` passes under the writers commit a migration with every
+     (doc, seq) acked once and in order; (b) config 3's 4,096 docs in
+     requests of 32 from 8 connections through the router (split across
+     owners and joined): every doc's patch equal to phase 1's, each
+     replica's K1 and K2 launches (read over its socket) above 0, then
+     a 40-writer hot key whose owner launches K3; (e) `scrape_fleet` over
+     the replicas' HTTP listeners: the section's pinned keys and a doc
+     count of 4,096 + 18 + 1; (c) a `ReplicaSupervisor` of three card
+     replicas with write-through stores, `HealthMonitor` and
+     `FailoverExecutor` (`tools/failover_check.py`'s shape, 15 docs, 5
+     writers): a SIGKILL mid-flush loses and duplicates no ack, the
+     final patches equal a serial CPU replay, a subscriber resyncs with
+     no gap, the respawned generation rejoins and takes a doc back, and
+     every member launches K1 on a probe batch; (d) a card
+     `ReadReplica` follows a card gateway through 15 flushes of two
+     concurrent writers (its own pool launches K1 and K2), closes a
+     forced gap of 5 changes by resync, answers a write with ReadOnly,
+     and a second replica bootstraps from the gateway's write-through
+     store, all equal to the upstream and to a CPU gateway.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -1191,7 +1216,7 @@ def card_busy(torch, fn):
     return out, wall, busy / 1e6
 
 
-def serving_phase(card, root, workloads, drive, K1, K2, K3):
+def serving_phase(card, workloads, drive, K1, K2, K3):
     """Phase 12: the port's server on the card.  Lane (a) runs against a
     real `python -m automerge_tpu_torch.sidecar.server --socket`
     subprocess, lanes (b) to (e) against in-process card gateways; each
@@ -1209,6 +1234,7 @@ def serving_phase(card, root, workloads, drive, K1, K2, K3):
     from automerge_tpu_torch.native import NativeDocPool
     from automerge_tpu_torch.scheduler import AdmissionQueue
     from automerge_tpu_torch.scheduler import queue as gw_queue
+    from automerge_tpu_torch.tools import proc as P
 
     work = tempfile.mkdtemp(prefix='amgw-')
     cwd = os.getcwd()
@@ -1217,13 +1243,9 @@ def serving_phase(card, root, workloads, drive, K1, K2, K3):
     t_phase = time.perf_counter()
     try:
         # -- (a) the serve-check shape, a server subprocess ---------------
-        env = dict(os.environ, PYTHONPATH=root)
-        proc = subprocess.Popen(
-            [sys.executable, '-m', 'automerge_tpu_torch.sidecar.server',
-             '--socket', 'a.sock'], env=env, cwd=work)
+        t0 = time.perf_counter()
+        proc = P.spawn_server('a.sock', 'cuda', deadline_s=300, cwd=work)
         try:
-            t0 = time.perf_counter()
-            S.wait_for_socket('a.sock', 300, proc)
             log('serve a: server subprocess up in %.1f s on %s'
                 % (time.perf_counter() - t0, card))
             (patches, finals, errors), wall_a, _ = drive(
@@ -1235,12 +1257,7 @@ def serving_phase(card, root, workloads, drive, K1, K2, K3):
                 health = c.result({'cmd': 'healthz'})
                 body = c.result({'cmd': 'metrics'})['body']
         finally:
-            proc.terminate()
-            try:
-                proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
+            P.stop_server(proc, timeout=60)
         want = _on_gateway('cpu', 'a-cpu.sock', lambda: S.serial_stream(
             'a-cpu.sock', SERVE_CONNS, SERVE_ROUNDS))
         if (patches, finals) != want:
@@ -1496,6 +1513,709 @@ def serving_phase(card, root, workloads, drive, K1, K2, K3):
                                                card))
 
 
+FLEET_REPLICAS = 3
+#: lane (a), `tools/route_check.py`'s shape: docs, writers, the zipf
+#: ops of the parity arm and of the rebalance arm
+ROUTE_DOCS, ROUTE_WRITERS, ROUTE_OPS, ROUTE_OPS2 = 18, 6, 160, 120
+#: lane (c), `tools/failover_check.py`'s shape
+FAILOVER_DOCS, FAILOVER_WRITERS, FAILOVER_OPS = 15, 5, (120, 150)
+#: lane (d), `tools/readpath_check.py` arm 2: churn flushes, forced gap
+READ_CHURN, READ_GAP = 15, 5
+FLEET_COUNTERS = ('launch.registers', 'launch.dominance', 'launch.members')
+
+
+def _prom_value(body, family, label, value):
+    import re
+    m = re.search(r'^%s\{%s="%s"\} (\S+)$' % (
+        re.escape(family), label, re.escape(value)), body, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def replica_counts(path, healthz=True):
+    """One replica server's kernel launches, oracle rows, stage spans,
+    flushes and docs, read over its own socket (`metrics` and
+    `healthz`), and the bytes torch holds on its card (0 on a CPU
+    pool).  With `healthz` false, only what `metrics` gives: a healthz
+    refreshes the capacity section, which a refresh throttle then holds
+    for a second, and a rebalance pass reads it."""
+    import torch_serving_cases as S
+    with S.RawConn(path, 120) as c:
+        if healthz:
+            hz = c.result({'cmd': 'healthz'})     # refreshes the mem gauges
+        body = c.result({'cmd': 'metrics'})['body']
+    out = {k: _prom_counter(body, k) for k in FLEET_COUNTERS}
+    out['fallback.oracle'] = _prom_value(body, 'amtpu_fallback_total',
+                                         'reason', 'oracle')
+    for span in ('host.begin', 'device.dispatch'):
+        out[span] = _prom_value(body, 'amtpu_phase_seconds_total', 'phase',
+                                span)
+    if not healthz:
+        return out
+    occ = hz['scheduler']['occupancy']
+    out['flushes'], out['flushed_docs'] = occ['count'], occ['sum']
+    out['owned'] = hz['routing']['owned_docs']
+    out['device_bytes'] = _prom_value(body, 'amtpu_mem_used_bytes',
+                                      'component', 'device')
+    return out
+
+
+def _deltas(before, after):
+    return {k: after[k] - before[k] for k in before
+            if isinstance(before[k], (int, float))}
+
+
+def replica_flushes(path, tids, reqs, ring, member):
+    """The flushes of one replica server, in the order it ran them: per
+    flush the docs of `member` from the requests it took, {doc: changes}
+    in request order.  Read from the server's span file (`--trace
+    --trace-file`): the `sidecar.request` span of each batched request
+    carries the request's trace id (`tids` maps it to its index in
+    `reqs`) and its flush span's id.  Waits for the last spans, which
+    the server writes just after it answers."""
+    want = sum(1 for r in reqs if any(ring.owner(d) == member for d in r))
+    deadline = time.monotonic() + 30
+    while True:
+        by_flush = {}
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                i = tids.get(rec.get('trace'))
+                if i is not None and rec['name'] == 'sidecar.request':
+                    by_flush.setdefault(rec['attrs']['flush'], []).append(i)
+        if sum(map(len, by_flush.values())) >= want or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    return [{d: reqs[i][d] for i in idxs for d in reqs[i]
+             if ring.owner(d) == member} for idxs in by_flush.values()]
+
+
+def _read_churn(workloads):
+    """Lane (d)'s flushes on one Text doc: the setup change, then per
+    flush two concurrent changes (two actors inserting and setting text
+    elements, both setting one root key): K1 resolves the key's group,
+    K2 ranks the inserts."""
+    chs = workloads.text_doc_changes('read-text', 2, READ_CHURN, 4,
+                                     lambda *a: False)
+    for ch in chs[1:]:
+        ch['ops'].append({'action': 'set', 'obj': workloads.ROOT_ID,
+                          'key': 'hot', 'value': '%s-%d' % (ch['actor'],
+                                                            ch['seq'])})
+    return [chs[:1]] + [chs[i:i + 2] for i in range(1, len(chs), 2)]
+
+
+def fleet_phase(card, workloads, drive, K1, K2, K3, batch3, slices3,
+                note_remote, capture_as, threads):
+    """Phase 13: the port's fleet on the card.  Lanes (a), (b) and (e)
+    ('routed') run on three `--device cuda` replica server subprocesses
+    behind an in-process `RouterGateway`, lane (c) ('failover') on three
+    more under a `ReplicaSupervisor`, lane (d) ('read') on an in-process
+    card gateway and two in-process card read replicas.  Every lane
+    holds its responses and final docs against a CPU reference.
+    `note_remote(label, counts)` adds a replica's launches to the kernel
+    line; `capture_as(label, fn)` runs fn with the kernel calls captured
+    for phase 11 (not counted); `threads` counts captured calls by
+    thread name."""
+    import shutil
+    import tempfile
+    import types
+
+    from automerge_tpu_torch import native
+
+    ctx = types.SimpleNamespace(
+        card=card, workloads=workloads, drive=drive, K1=K1, K2=K2, K3=K3,
+        batch3=batch3, slices3=slices3, note_remote=note_remote,
+        capture_as=capture_as, threads=threads)
+    work = tempfile.mkdtemp(prefix='amfl-')
+    cwd = os.getcwd()
+    os.chdir(work)        # unix socket paths are short: bind relative names
+    t_phase = time.perf_counter()
+    try:
+        for lane, fn in (('routed', _fleet_routed),
+                         ('failover', _fleet_failover),
+                         ('read', _fleet_read)):
+            t = time.perf_counter()
+            fn(ctx, work)
+            log('fleet %s lanes: %.1f s wall on %s' % (
+                lane, time.perf_counter() - t, card))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    if native.live_batch_handles():
+        raise AssertionError('fleet: live batch handles left')
+    log('fleet phase: %.1f s wall on %s' % (time.perf_counter() - t_phase,
+                                             card))
+
+
+def _fleet_routed(ctx, work):
+    """Lanes (a), (b) and (e): three replica servers behind a router."""
+    import msgpack
+    import torch_serving_cases as S
+
+    from automerge_tpu_torch.native import NativeDocPool
+    from automerge_tpu_torch.router import (MigrationExecutor, Rebalancer,
+                                            RouterGateway)
+    from automerge_tpu_torch.telemetry import fleet as fleet_tel
+    from automerge_tpu_torch.tools import proc as P
+
+    card, workloads, drive = ctx.card, ctx.workloads, ctx.drive
+    K1, K2, K3 = ctx.K1, ctx.K2, ctx.K3
+    batch3, slices3 = ctx.batch3, ctx.slices3
+    note_remote, capture_as = ctx.note_remote, ctx.capture_as
+    procs, router = {}, None
+    try:
+        # -- three card replicas behind one router ------------------------
+        ports = {'r%d' % i: _free_port() for i in range(FLEET_REPLICAS)}
+        paths = {r: '%s.sock' % r for r in ports}
+        spans = {r: '%s.spans.jsonl' % r for r in ports}
+        t0 = time.perf_counter()
+        procs = P.spawn_servers(
+            [(paths[r], ['--replica-id', r, '--metrics-port', str(ports[r]),
+                         '--trace', '--trace-file', spans[r]])
+             for r in sorted(paths)], device='cuda', deadline_s=300,
+            cwd=work)
+        log('fleet: %d replica servers (--device cuda) up in %.1f s on %s'
+            % (len(procs), time.perf_counter() - t0, card))
+        base = {r: replica_counts(p, healthz=False) for r, p in paths.items()}
+        router = RouterGateway('router.sock', paths).start()
+        ring = router.ring
+
+        # -- (a) routed parity, placement, rebalance under writers --------
+        docs = S.pick_docs(ring, ROUTE_DOCS)
+        seqs = S.zipf_seqs(docs, ROUTE_OPS)
+        streams = [(d, [S.route_change(d, s) for s in range(1, seqs[d] + 1)])
+                   for d in docs]
+        (acks, raw, retries, errors), wall_a, _ = drive(
+            'fleet a routed card', lambda: S.routed_writers(
+                'router.sock', streams, ROUTE_WRITERS), need=(), waves=None)
+        if errors:
+            raise AssertionError('fleet a: writers failed: %s' % errors)
+        with S.RawConn('router.sock') as c:
+            finals = {d: c.call({'id': 'final', 'cmd': 'get_patch',
+                                 'doc': d}) for d in docs}
+        want_raw, want_finals = _on_gateway(
+            'cpu', 'a-cpu.sock', lambda: S.serial_route_replay(
+                'a-cpu.sock', seqs))
+        if raw != want_raw or finals != want_finals:
+            raise AssertionError('fleet a: routed responses differ from the '
+                                 'serial CPU gateway\'s')
+        owners0 = {d: ring.owner(d) for d in docs}
+        counts = {r: replica_counts(p) for r, p in paths.items()}
+        if any(c['fallback.oracle'] for c in counts.values()):
+            raise AssertionError('fleet a: oracle rows %r' % counts)
+        for r in sorted(paths):
+            note_remote('fleet a routed %s' % r, _deltas(base[r], counts[r]))
+        log('fleet a: %d docs zipf over %d replicas (hot ranks on %s), %d '
+            'requests from %d writers in %.3f s, %d retried; every response '
+            'and final patch equal to one CPU gateway\'s serial replay; '
+            'oracle 0 on every replica on %s' % (
+                len(docs), len(paths), owners0[docs[0]], len(raw),
+                ROUTE_WRITERS, wall_a, len(retries), card))
+        seqs2 = S.zipf_seqs(docs, ROUTE_OPS2)
+        streams2 = [(d, [S.route_change(d, s) for s in range(
+            seqs[d] + 1, seqs[d] + seqs2[d] + 1)]) for d in docs]
+        load_out = []
+        load = threading.Thread(target=lambda: load_out.append(
+            S.routed_writers('router.sock', streams2, ROUTE_WRITERS)))
+        rb = Rebalancer(router, executor=MigrationExecutor(
+            router, handoff_dir='handoff', timeout_s=60.0),
+            interval_s=3600, topk=4, min_skew=0.2, pressure=0.8)
+        moved, passes = [], 0
+        t0 = time.perf_counter()
+        load.start()
+        try:
+            for _ in range(4):
+                res = rb.scan()
+                passes += 1
+                if res is None:
+                    break
+                if res['failed']:
+                    raise AssertionError('fleet a: migration failed %r'
+                                         % res)
+                moved += res['docs']
+        finally:
+            load.join(timeout=300)
+        wall_a2 = time.perf_counter() - t0
+        acks2, _, retries2, errors2 = load_out[0]
+        if errors2 or not moved:
+            raise AssertionError('fleet a: writers %s, moved %r'
+                                 % (errors2, moved))
+        for d in docs:
+            if acks2[d] != list(range(seqs[d] + 1, seqs[d] + seqs2[d] + 1)):
+                raise AssertionError('fleet a: acks of %s lost, duplicated '
+                                     'or reordered: %r' % (d, acks2[d]))
+        for r, p in sorted(paths.items()):
+            note_remote('fleet a rebalance %s' % r,
+                        _deltas(counts[r], replica_counts(p)))
+        total = {d: seqs[d] + seqs2[d] for d in docs}
+        with S.RawConn('router.sock') as c:
+            finals = {d: c.call({'id': 'final', 'cmd': 'get_patch',
+                                 'doc': d}) for d in docs}
+        if finals != _on_gateway('cpu', 'a2-cpu.sock', lambda: (
+                S.serial_route_replay('a2-cpu.sock', total)[1])):
+            raise AssertionError('fleet a: final patches after the '
+                                 'migrations differ from the CPU replay')
+        log('fleet a: rebalance under %d writers moved %s (%d passes) in '
+            '%.3f s; every (doc, seq) acked once and in order (%d retried); '
+            'final patches equal to the CPU replay; ring v%d on %s' % (
+                ROUTE_WRITERS, moved, passes, wall_a2,
+                len(retries2), ring.version, card))
+
+        # -- (b) config 3 fanned in through the router --------------------
+        keys = sorted(batch3, key=str)
+        reqs = [{str(k): batch3[k] for k in keys[i:i + FANIN_PER_REQ]}
+                for i in range(0, len(keys), FANIN_PER_REQ)]
+        split = sum(1 for r in reqs if len({ring.owner(d) for d in r}) > 1)
+        # each request's own trace id: a replica's span file then says
+        # which requests each of its flushes took
+        tids = {'fb%030x' % i: i for i in range(len(reqs))}
+        tctx = {i: {'traceId': t, 'spanId': '%016x' % (i + 1)}
+                for t, i in tids.items()}
+
+        def fan_in(path):
+            out, errors = [None] * len(reqs), []
+            barrier = threading.Barrier(FANIN_CONNS, timeout=300)
+
+            def send(ci):
+                try:
+                    with S.RawConn(path, 600) as c:
+                        barrier.wait()
+                        for r in range(ci, len(reqs), FANIN_CONNS):
+                            out[r] = c.call({'id': r, 'cmd': 'apply_batch',
+                                             'docs': reqs[r],
+                                             'trace': tctx[r]})
+                except Exception as e:
+                    errors.append('%s: %s' % (type(e).__name__, e))
+            ts = [threading.Thread(target=send, args=(ci,))
+                  for ci in range(FANIN_CONNS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=600)
+            if errors:
+                raise AssertionError('fleet b: %s' % errors)
+            return out
+        before = {r: replica_counts(p) for r, p in paths.items()}
+        got, wall_b, _ = drive('fleet b fan-in card', lambda: fan_in(
+            'router.sock'), need=(), waves=None)
+        after = {r: replica_counts(p) for r, p in paths.items()}
+        n_docs = 0
+        for i, line in enumerate(got):
+            resp = json.loads(line)
+            if resp.get('id') != i or 'result' not in resp:
+                raise AssertionError('fleet b: request %d answered %.200s'
+                                     % (i, line))
+            if sorted(resp['result']) != sorted(reqs[i]):
+                raise AssertionError('fleet b: request %d joined the wrong '
+                                     'docs' % i)
+            for d, patch in resp['result'].items():
+                if patch != msgpack.unpackb(slices3[d], raw=False):
+                    raise AssertionError('fleet b: doc %s differs from '
+                                         'phase 1\'s patch' % d)
+                n_docs += 1
+        delta = {r: _deltas(before[r], after[r]) for r in paths}
+        for r, dl in sorted(delta.items()):
+            if dl[K1] <= 0 or dl[K2] <= 0 or dl['fallback.oracle']:
+                raise AssertionError('fleet b: replica %s launched K1 %d K2 '
+                                     '%d, oracle %d' % (
+                                         r, dl[K1], dl[K2],
+                                         dl['fallback.oracle']))
+            note_remote('fleet b fan-in %s' % r, dl)
+        log('fleet b: %d docs of config 3 (%d ops) in %d apply_batch '
+            'requests of %d from %d connections (%d split across owners and '
+            'joined) in %.3f s; every doc\'s patch equal to phase 1\'s on '
+            '%s' % (n_docs, workloads.op_count(batch3), len(reqs),
+                    FANIN_PER_REQ, FANIN_CONNS, split, wall_b, card))
+        for r in sorted(paths):
+            dl = delta[r]
+            log('fleet b %s: %d docs, %d flushes (%.1f docs a flush), '
+                'launches K1 %d K2 %d K3 %d, oracle 0, host.begin %.4f s, '
+                'device.dispatch %.4f s, %d B on the card, on %s' % (
+                    r, sum(1 for k in keys if ring.owner(str(k)) == r),
+                    dl['flushes'], dl['flushed_docs'] / max(1, dl['flushes']),
+                    dl[K1], dl[K2], dl[K3], dl['host.begin'],
+                    dl['device.dispatch'], after[r]['device_bytes'], card))
+        log('fleet b: summed over the replicas host.begin %.4f s, '
+            'device.dispatch %.4f s on %s' % (
+                sum(d['host.begin'] for d in delta.values()),
+                sum(d['device.dispatch'] for d in delta.values()), card))
+        # each replica's real flushes, regrouped from its span file; the
+        # largest is replayed here on a fresh card pool for phase 11
+        for r in sorted(paths):
+            flushes = replica_flushes(spans[r], tids, reqs, ring, r)
+            sizes = [len(f) for f in flushes]
+            if len(flushes) != delta[r]['flushes'] or \
+                    sum(sizes) != delta[r]['flushed_docs']:
+                raise AssertionError(
+                    'fleet b: %s span file holds %d flushes of %d docs, its '
+                    'occupancy %d of %d' % (r, len(flushes), sum(sizes),
+                                            delta[r]['flushes'],
+                                            delta[r]['flushed_docs']))
+            big = max(flushes, key=lambda f: (len(f), workloads.op_count(f)))
+            log('fleet b %s: flushes of %d to %d docs (mean %.1f) from its '
+                'span file; the largest (%d docs, %d ops) replayed for phase '
+                '11 on %s' % (r, min(sizes), max(sizes),
+                              sum(sizes) / len(sizes), len(big),
+                              workloads.op_count(big), card))
+            pool = NativeDocPool(device='cuda')
+            capture_as('fleet b %s largest flush (%d docs)' % (r, len(big)),
+                       lambda: pool.apply_batch_bytes(msgpack.packb(
+                           big, use_bin_type=True)))
+        hot = [{str(k): v for k, v in b.items()}
+               for b in workloads.hot_key_batch(40)]
+
+        def hot_key(path):
+            with S.RawConn(path, 300) as c:
+                return [c.call({'id': i, 'cmd': 'apply_batch', 'docs': b})
+                        for i, b in enumerate(hot)]
+        owner = ring.owner('doc')
+        before = replica_counts(paths[owner])
+        got_hot, wall_h, _ = drive('fleet b hot key card', lambda: hot_key(
+            'router.sock'), need=(), waves=None)
+        dl = _deltas(before, replica_counts(paths[owner]))
+        if got_hot != _on_gateway('cpu', 'h-cpu.sock',
+                                  lambda: hot_key('h-cpu.sock')):
+            raise AssertionError('fleet b: hot-key responses differ from '
+                                 'the CPU gateway\'s')
+        if dl[K3] <= 0 or dl['fallback.oracle']:
+            raise AssertionError('fleet b: hot key on %s: K3 %d, oracle %d'
+                                 % (owner, dl[K3], dl['fallback.oracle']))
+        note_remote('fleet b hot key %s' % owner, dl)
+        pool = NativeDocPool(device='cuda')
+        capture_as('fleet b replay hot key', lambda: [
+            pool.apply_batch_bytes(msgpack.packb(b, use_bin_type=True))
+            for b in hot])
+        log('fleet b: hot key of 40 writers through the router to %s in '
+            '%.3f s: launches K1 %d K2 %d K3 %d, oracle 0, responses equal '
+            'to the CPU gateway\'s on %s' % (owner, wall_h, dl[K1], dl[K2],
+                                             dl[K3], card))
+
+        # -- (e) fleet telemetry over the replicas' HTTP listeners --------
+        scrapes, section = fleet_tel.scrape_fleet(
+            ['http://127.0.0.1:%d' % ports[r] for r in sorted(ports)])
+        owned = sum(m.get('owned_docs') or 0
+                    for m in section['routing']['members'])
+        want_docs = len(batch3) + len(docs) + 1
+        if section['errors'] or \
+                tuple(sorted(section)) != S.FLEET_SECTION_KEYS or \
+                tuple(sorted(section['headroom'])) != \
+                S.FLEET_HEADROOM_KEYS or \
+                tuple(sorted(section['routing'])) != S.FLEET_ROUTING_KEYS or \
+                any(tuple(sorted(r)) != S.FLEET_REPLICA_KEYS
+                    for r in section['replicas']) or \
+                sorted(r['replica_id'] for r in section['replicas']) != \
+                sorted(ports) or owned != want_docs:
+            raise AssertionError('fleet e: section %s' % json.dumps(
+                section, default=str)[:2000])
+        log('fleet e: scrape_fleet over %d listeners: keys as pinned, docs '
+            '%s = %d (%d + %d + the hot-key doc), merged mutate 3600s '
+            'count %s, headroom used %s B on %s' % (
+                len(scrapes), {m['replica_id']: m.get('owned_docs')
+                               for m in section['routing']['members']},
+                owned, len(batch3), len(docs), section['slo']['classes'].get(
+                    'mutate', {}).get('3600s', {}).get('count'),
+                section['headroom']['used_bytes'], card))
+    finally:
+        if router is not None:
+            router.stop()
+        P.stop_all(procs)
+
+
+def _fleet_failover(ctx, work):
+    """Lane (c): a SIGKILL under a supervisor with health and failover."""
+    import torch_serving_cases as S
+
+    from automerge_tpu_torch import telemetry
+    from automerge_tpu_torch.router import (FailoverExecutor, HealthMonitor,
+                                            MigrationExecutor, Rebalancer,
+                                            ReplicaSupervisor, RouterGateway)
+    from automerge_tpu_torch.sidecar.client import SidecarClient
+
+    card, workloads = ctx.card, ctx.workloads
+    K1, note_remote = ctx.K1, ctx.note_remote
+    router = sup = hm = None
+    try:
+        # -- (c) failover under a supervisor ------------------------------
+        os.makedirs('c')
+        router = RouterGateway('c/router.sock', {},
+                               journal_path='c/placement.json').start()
+        ex = FailoverExecutor(router)
+        hm = HealthMonitor(router, heartbeat_s=0.1, deadline_s=0.5,
+                           miss_max=3, on_dead=ex.fail_over).start()
+        sup = ReplicaSupervisor(router, 'c', health=hm, failover=ex,
+                                device='cuda', spawn_deadline_s=300.0)
+        t0 = time.perf_counter()
+        spawned, errs = [], []
+
+        def spawn(base):
+            try:
+                spawned.append(sup.spawn(base))
+            except Exception as e:
+                errs.append(e)
+        ts = [threading.Thread(target=spawn, args=('r%d' % i,))
+              for i in range(FLEET_REPLICAS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if errs or len(spawned) != FLEET_REPLICAS:
+            raise AssertionError('fleet c: spawn failed: %r' % errs)
+        sup.start()
+        log('fleet c: %d supervised replicas (--device cuda --durable --sync) '
+            'up in %.1f s on %s' % (len(spawned), time.perf_counter() - t0,
+                                    card))
+        cring = router.ring
+        fdocs = ['doc-%03d' % i for i in range(FAILOVER_DOCS)]
+        seqs1 = S.zipf_seqs(fdocs, FAILOVER_OPS[0])
+        seqs2 = S.zipf_seqs(fdocs, FAILOVER_OPS[1])
+        ftotal = {d: seqs1[d] + seqs2[d] for d in fdocs}
+        acks1, _, _, errs1 = S.routed_writers('c/router.sock', [
+            (d, [S.route_change(d, s) for s in range(1, seqs1[d] + 1)])
+            for d in fdocs], FAILOVER_WRITERS)
+        if errs1:
+            raise AssertionError('fleet c: writers failed: %s' % errs1)
+        victim = cring.owner(fdocs[0])
+        victim_docs = [d for d in fdocs if cring.owner(d) == victim]
+        sub_doc = victim_docs[0]
+        sub = SidecarClient(sock_path='c/router.sock')
+        seen = set(ch['seq'] for ch in sub.subscribe(
+            sub_doc, peer='failover-watch').get('changes') or ())
+        load_out = []
+        load = threading.Thread(target=lambda: load_out.append(
+            S.routed_writers('c/router.sock', [
+                (d, [S.route_change(d, s)
+                     for s in range(seqs1[d] + 1, ftotal[d] + 1)])
+                for d in fdocs], FAILOVER_WRITERS)))
+
+        def poll(cond, limit, what):
+            t = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t > limit:
+                    raise AssertionError('fleet c: timed out on %s' % what)
+                time.sleep(0.01)
+        load.start()
+        time.sleep(0.3)                   # the writers are mid-stream
+        t_kill = time.perf_counter()
+        sup.proc(victim).kill()
+        poll(lambda: hm.state(victim) == 'dead', 60, 'death detection')
+        detect_s = time.perf_counter() - t_kill
+        poll(lambda: victim not in router.replicas, 120, 'the failover')
+        restore_s = time.perf_counter() - t_kill
+        poll(lambda: any(m.endswith('-g1') for m in router.replicas), 300,
+             'the respawned generation')
+        rejoin_s = time.perf_counter() - t_kill
+        load.join(timeout=600)
+        acks2, _, retries2, errs2 = load_out[0]
+        if errs2:
+            raise AssertionError('fleet c: hard failures: %s' % errs2)
+        # every launch the live members made since they came up (all of
+        # it lane (c)'s writes); the victim's died with it
+        for m, path in sorted(router.replicas.items()):
+            note_remote('fleet c writers %s' % m, replica_counts(path))
+        for d in fdocs:
+            if acks2[d] != list(range(seqs1[d] + 1, ftotal[d] + 1)):
+                raise AssertionError('fleet c: acks of %s lost, duplicated '
+                                     'or reordered: %r' % (d, acks2[d]))
+        with S.RawConn('c/router.sock') as c:
+            ffinals = {d: c.call({'id': 'final', 'cmd': 'get_patch',
+                                  'doc': d}) for d in fdocs}
+        if ffinals != _on_gateway('cpu', 'c-cpu.sock', lambda: (
+                S.serial_route_replay('c-cpu.sock', ftotal)[1])):
+            raise AssertionError('fleet c: final patches differ from the '
+                                 'serial CPU replay')
+        deadline = time.monotonic() + 60
+        while not set(range(1, ftotal[sub_doc] + 1)) <= seen:
+            if time.monotonic() > deadline:
+                raise AssertionError('fleet c: the subscriber saw %s'
+                                     % sorted(seen))
+            ev = sub.next_event(timeout=30)
+            if ev is not None and ev.get('event') == 'change':
+                seen.update(ch['seq'] for ch in ev.get('changes') or ())
+        sub.close()
+        flat = telemetry.metrics_snapshot()
+        joiner = next(m for m in router.replicas if m.endswith('-g1'))
+        rb = Rebalancer(router, executor=MigrationExecutor(
+            router, handoff_dir='c/handoff', timeout_s=60.0),
+            interval_s=3600, topk=4, min_skew=0.2, pressure=0.8)
+        drained = []
+        for _ in range(4):
+            res = rb.scan()
+            if res is None:
+                break
+            drained += [d for d in res['docs'] if cring.owner(d) == joiner]
+        # every live member's pool is on the card: a two-writer batch
+        # sent to each directly launches K1 there
+        probe = [{'probe': v} for b in workloads.hot_key_batch(2)
+                 for v in b.values()]
+        live = {}
+        for m, path in sorted(router.replicas.items()):
+            before = replica_counts(path)
+            with S.RawConn(path) as c:
+                for b in probe:
+                    c.result({'cmd': 'apply_batch', 'docs': b})
+            live[m] = _deltas(before, replica_counts(path))
+            note_remote('fleet c probe %s' % m, live[m])
+        flat = telemetry.metrics_snapshot()
+        if flat.get('router.resyncs', 0) < 1 or not drained or \
+                flat.get('failover.docs_lost', 0) or \
+                flat.get('failover.failovers') != 1 or \
+                flat.get('router.health.deaths') != 1 or \
+                len(router.replicas) != FLEET_REPLICAS or any(
+                    c['fallback.oracle'] or c[K1] <= 0
+                    for c in live.values()):
+            raise AssertionError('fleet c: resyncs %s, drained %r, lost %s, '
+                                 'failovers %s, deaths %s, members %s, '
+                                 'probes %r' % (
+                                     flat.get('router.resyncs'), drained,
+                                     flat.get('failover.docs_lost'),
+                                     flat.get('failover.failovers'),
+                                     flat.get('router.health.deaths'),
+                                     hm.members(), live))
+        log('fleet c: SIGKILL of %s (%d of %d docs) mid-flush: detect_s '
+            '%.3f restore_s %.3f rejoin_s %.3f (as %s); %d retried '
+            'requests, no ack lost or duplicated; final patches equal to the '
+            'serial CPU replay; the subscriber resynced with no gap (seqs '
+            '1-%d of %s); recovered %d, replayed %d; %d docs drained back '
+            'onto %s; oracle 0; each member launched K1 on a probe batch '
+            '(%s) on %s' % (
+                victim, len(victim_docs), len(fdocs), detect_s, restore_s,
+                rejoin_s, joiner, len(retries2), ftotal[sub_doc], sub_doc,
+                flat.get('failover.docs_recovered', 0),
+                flat.get('failover.replayed', 0), len(drained), joiner,
+                {m: int(c[K1]) for m, c in live.items()}, card))
+    finally:
+        # the monitor first: replicas the supervisor stops must not be
+        # failed over
+        for obj in (hm, sup, router):
+            if obj is not None:
+                obj.stop()
+
+
+def _fleet_read(ctx, work):
+    """Lane (d): two card read replicas following one card gateway."""
+    import torch_serving_cases as S
+
+    from automerge_tpu_torch import telemetry
+    from automerge_tpu_torch.readview.replica import ReadReplica
+
+    card, workloads, drive = ctx.card, ctx.workloads, ctx.drive
+    K1, K2 = ctx.K1, ctx.K2
+    threads = ctx.threads
+    # -- (d) read replicas on the card --------------------------------
+    os.makedirs('d')
+    churn = _read_churn(workloads)
+    doc = 'read-doc'
+    gw = _gateway('cuda', 'd/up.sock', sync_dir='d/store')
+    rep = rep2 = None
+    try:
+        with S.RawConn('d/up.sock') as up:
+            up.result({'cmd': 'apply_changes', 'doc': doc,
+                       'changes': churn[0]})
+            rep = ReadReplica('d/up.sock', 'd/read.sock', docs=[doc],
+                              device='cuda', probe_s=0.2, slo_s=30.0)
+
+            def lane_d():
+                rep.start()
+                with S.RawConn('d/read.sock') as rd:
+                    for flush in churn[1:]:
+                        up.result({'cmd': 'apply_changes', 'doc': doc,
+                                   'changes': flush})
+                        rd.result({'cmd': 'get_patch', 'doc': doc})
+                    for s in range(1, READ_GAP + 1):
+                        up.result({'cmd': 'apply_changes',
+                                   'doc': 'gap-doc', 'changes': [
+                                       S.route_change('gap-doc', s)]})
+                    n_gap = rep.resync_doc('gap-doc')
+                    refused = rd.call({'id': 'w', 'cmd': 'apply_changes',
+                                       'doc': doc,
+                                       'changes': [S.route_change(
+                                           doc, 1)]})
+                    deadline = time.monotonic() + 60
+                    while True:
+                        want = [up.call({'id': 'p', 'cmd': 'get_patch',
+                                         'doc': d})
+                                for d in (doc, 'gap-doc')]
+                        got = [rd.call({'id': 'p', 'cmd': 'get_patch',
+                                        'doc': d})
+                               for d in (doc, 'gap-doc')]
+                        if got == want or time.monotonic() > deadline:
+                            return n_gap, refused, got, want
+                        time.sleep(0.02)
+            threads.clear()
+            (n_gap, refused, got, want), wall_d, _ = drive(
+                'fleet d read replica card', lane_d, need=(K1, K2),
+                waves=None)
+            by_replica = {k: sum(n for t, n in v.items()
+                                 if t.startswith('amtpu-replica'))
+                          for k, v in threads.items()}
+            stale = rep.healthz_section()
+            rep.stop()
+            rep = None
+            rep2 = ReadReplica('d/up.sock', 'd/read2.sock',
+                               store_dir='d/store', device='cuda',
+                               probe_s=0.2, slo_s=30.0).start()
+            with S.RawConn('d/read2.sock') as rd2:
+                deadline = time.monotonic() + 60
+                while True:
+                    got2 = [rd2.call({'id': 'p', 'cmd': 'get_patch',
+                                      'doc': d}) for d in (doc, 'gap-doc')]
+                    if got2 == want or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.02)
+            boot = telemetry.metrics_snapshot().get(
+                'readview.replica_bootstrap_docs', 0)
+    finally:
+        for r in (rep, rep2):
+            if r is not None:
+                r.stop()
+        gw.stop()
+    envelope = json.loads(refused)
+    cpu_want = _on_gateway('cpu', 'd-cpu.sock', lambda: _read_ref(
+        'd-cpu.sock', doc, churn))
+    if n_gap != READ_GAP or got != want or got2 != want or \
+            want != cpu_want or envelope.get('errorType') != 'ReadOnly' \
+            or boot < 2 or by_replica.get('registers', 0) <= 0 \
+            or by_replica.get('dominance', 0) <= 0:
+        raise AssertionError('fleet d: gap %d, equal %s/%s/%s, %r, '
+                             'bootstrap %s, replica calls %r' % (
+                                 n_gap, got == want, got2 == want,
+                                 want == cpu_want, envelope, boot,
+                                 by_replica))
+    log('fleet d: a card read replica followed %d churn flushes of 2 '
+        'concurrent writers in %.3f s (its pool called K1 %d, K2 %d '
+        'times), closed a forced gap of %d changes by resync, answered '
+        'a write with ReadOnly; get_patch equal to the upstream\'s and '
+        'to a CPU gateway\'s; a second replica bootstrapped %d docs from '
+        'the upstream\'s write-through store and ends equal; staleness '
+        '%s on %s' % (len(churn) - 1, wall_d,
+                      by_replica.get('registers', 0),
+                      by_replica.get('dominance', 0), n_gap, boot,
+                      stale, card))
+
+
+def _read_ref(path, doc, churn):
+    """Lane (d)'s writes on one gateway: the final patches of the
+    followed doc and the gap doc."""
+    import torch_serving_cases as S
+    with S.RawConn(path) as c:
+        for flush in churn:
+            c.result({'cmd': 'apply_changes', 'doc': doc, 'changes': flush})
+        for s in range(1, READ_GAP + 1):
+            c.result({'cmd': 'apply_changes', 'doc': 'gap-doc',
+                      'changes': [S.route_change('gap-doc', s)]})
+        return [c.call({'id': 'p', 'cmd': 'get_patch', 'doc': d})
+                for d in (doc, 'gap-doc')]
+
+
 def patch_slices(buf):
     """{doc key: raw patch bytes} of a batch result map."""
     import msgpack
@@ -1616,6 +2336,9 @@ def run(torch):
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
     captured = {'registers': [], 'dominance': [], 'members': []}
+    # captured calls by the thread that made them (the fleet phase tells
+    # a read replica's pool from its upstream gateway's in one process)
+    by_thread = {}
     originals = []
     current = {'path': 'warm-up'}
 
@@ -1625,6 +2348,9 @@ def run(torch):
 
         def wrapper(*args, **kw):
             if current['path'] is not None:
+                name = threading.current_thread().name
+                by_thread.setdefault(key, {})[name] = \
+                    by_thread.get(key, {}).get(name, 0) + 1
                 captured[key].append((current['path'],
                                       [a.clone() for a in args], dict(kw)))
             return orig(*args, **kw)
@@ -1879,8 +2605,32 @@ def run(torch):
 
     # -- phase 12: the port's server on the card (before the checks of
     # phase 11, which hold its kernel calls against the plain versions) --
-    serving_phase(card, os.path.dirname(os.path.abspath(__file__)),
-                  workloads, drive, K1, K2, K3)
+    serving_phase(card, workloads, drive, K1, K2, K3)
+
+    # -- phase 13: the fleet over card replicas (before the checks of
+    # phase 11, which hold its in-process kernel calls too) -------------
+    def note_remote(label, counts):
+        """A replica server's launches on a driven path (read over its
+        socket as the difference across the path) join the kernel
+        line's counts."""
+        for k in (K1, K2, K3):
+            n = int(counts.get(k, 0))
+            launches[k] += n
+            if n:
+                by_path[k][label] = n
+
+    def capture_as(label, fn):
+        """fn() with its kernel calls captured for phase 11 under
+        `label`; they count toward no path's launches."""
+        torch.cuda.synchronize()
+        current['path'] = label
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            current['path'] = None
+    fleet_phase(card, workloads, drive, K1, K2, K3, batch3,
+                patch_slices(out_gpu), note_remote, capture_as, by_thread)
 
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:

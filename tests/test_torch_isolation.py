@@ -1,11 +1,13 @@
 """automerge_tpu_torch stands alone: no module of the package, no line
 of chip_smoke.py and nothing of the test helpers it imports pulls in JAX
-or the JAX package, and the pool's default device is CUDA, with no
-silent fallback to the CPU."""
+or the JAX package, none of them names a JAX-package module in a string
+(a spawned server's `-m` module), and the pool's default device is CUDA,
+with no silent fallback to the CPU."""
 
 import ast
 import glob
 import os
+import re
 
 import pytest
 import torch
@@ -47,6 +49,32 @@ def test_no_jax_or_automerge_tpu_imports(path):
     assert os.path.exists(path)
     bad = [name for name in _imports(path) if _forbidden(name)]
     assert not bad, '%s imports %s' % (os.path.relpath(path, ROOT), bad)
+
+
+#: a JAX-package module named in a string (a spawned `-m` module, a
+#: lazy import by name): `automerge_tpu.` with no `_torch` between
+_JAX_MODULE_STRING = re.compile(r'\bautomerge_tpu\.')
+
+
+@pytest.mark.parametrize('path', FILES,
+                         ids=[os.path.relpath(p, ROOT) for p in FILES])
+def test_no_jax_package_module_strings(path):
+    """Module strings reach no import walk (`python -m ...` in a spawn
+    argv, the supervisor's and client's server module), so the text of
+    every file is scanned too."""
+    with open(path) as f:
+        hits = [(i + 1, line.strip()) for i, line in enumerate(f)
+                if _JAX_MODULE_STRING.search(line)]
+    assert not hits, '%s names JAX-package modules: %s' % (
+        os.path.relpath(path, ROOT), hits)
+
+
+def test_string_scan_catches_a_jax_module_string():
+    assert _JAX_MODULE_STRING.search(
+        "[sys.executable, '-m', 'automerge_tpu.sidecar.server']")
+    assert not _JAX_MODULE_STRING.search(
+        "[sys.executable, '-m', 'automerge_tpu_torch.sidecar.server']")
+    assert not _JAX_MODULE_STRING.search('automerge_tpu/ops/x.py:48')
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):

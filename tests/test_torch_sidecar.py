@@ -155,10 +155,18 @@ def _families(body):
     return sorted(set(re.findall(r'^# TYPE (\S+)', body, re.M)))
 
 
+def _counted(batches):
+    return sorted(k for k, v in batches.items() if v)
+
+
 def test_metrics_healthz_dump_keys():
     """The measured commands carry the JAX server's family names and
     section keys after the same traffic; the values are this process's
     own measurements."""
+    # the `batches` table is process-wide: files that ran earlier in this
+    # process filled it, so both packages start from zero here
+    telemetry.reset_all()
+    jax_telemetry.reset_all()
     port, jax = backends()
     reqs = [r for r in command_stream() if r['id'] < 19]
     run_stream(port, reqs)
@@ -179,7 +187,11 @@ def test_metrics_healthz_dump_keys():
     assert sorted(ph) == sorted(jh)
     for key in ('resilience', 'slo', 'recorder'):
         assert sorted(ph[key]) == sorted(jh[key]), key
-    assert ph['batches'] and sorted(ph['batches']) == sorted(jh['batches'])
+    # a reset zeroes a labelled child but keeps it (the JAX table keeps
+    # an 'engine' row at 0 after a file that drove the engine): compare
+    # the kinds this test's traffic counted
+    assert ph['batches']
+    assert _counted(ph['batches']) == _counted(jh['batches'])
     pd = port.handle({'id': 3, 'cmd': 'dump'})['result']
     jd = jax.handle({'id': 3, 'cmd': 'dump'})['result']
     assert sorted(pd) == sorted(jd) and pd['events'] > 0

@@ -5,11 +5,12 @@ through the JAX package's gateway and the port's) and by `chip_smoke.py`
 (which runs it through a card gateway and a CPU one).  Imports nothing
 of JAX and nothing of either package: the traffic is plain dicts, and
 `RawConn` speaks the gateway's JSON-lines framing over a unix socket,
-keeping every frame's bytes as they came off the wire.
+keeping every frame's bytes as they came off the wire.  The fleet's
+traffic (the route and failover checks' shapes) and the fleet
+section's pinned keys are here too.
 """
 
 import json
-import os
 import select
 import socket
 import threading
@@ -33,20 +34,6 @@ def doc_stream(i, rounds=6):
     return doc, [set_change('w%02d' % i, s, 'k%d' % (s % 3),
                             '%d-%d' % (i, s))
                  for s in range(1, rounds + 1)]
-
-
-def wait_for_socket(path, timeout=60.0, proc=None):
-    """Waits until a server has bound `path`; raises on timeout or when
-    `proc` exits first."""
-    deadline = time.monotonic() + timeout
-    while not os.path.exists(path):
-        if proc is not None and proc.poll() is not None:
-            raise RuntimeError('server exited with %s before binding %s'
-                               % (proc.returncode, path))
-        if time.monotonic() > deadline:
-            raise RuntimeError('server did not bind %s in %.0f s'
-                               % (path, timeout))
-        time.sleep(0.05)
 
 
 class RawConn(object):
@@ -302,3 +289,116 @@ def run_fanout_bench(path, traffic, n_conns=16, timeout=300.0):
     finally:
         for c in conns:
             c.close()
+
+
+#: the keys of `telemetry.fleet.fleet_section` and of its parts, as the
+#: JAX package's fleet plane gives them (`tests/test_torch_fleet.py`
+#: pins the port's to these; `chip_smoke.py` holds a card fleet's scrape
+#: to them)
+FLEET_SECTION_KEYS = ('errors', 'headroom', 'replicas', 'routing', 'slo')
+FLEET_HEADROOM_KEYS = ('budget_bytes', 'pressure', 'pressure_skew',
+                       'replicas', 'used_bytes')
+FLEET_HEADROOM_ROW_KEYS = ('arena_bytes', 'budget_bytes', 'egress_bytes',
+                           'exhaustion_s', 'pressure', 'replica_id',
+                           'uptime_s', 'used_bytes')
+FLEET_ROUTING_KEYS = ('consistent', 'members', 'ring_version_max',
+                      'ring_version_min')
+FLEET_REPLICA_KEYS = ('replica_id', 'uptime_s', 'url')
+
+
+# -- fleet traffic (the shapes of the JAX package's route and failover
+#    checks) ------------------------------------------------------------
+
+def route_change(doc, seq):
+    """One doc's deterministic single-actor stream: a serial replay of
+    the same changes must give the same per-request patches under any
+    routing."""
+    return {'actor': 'w-%s' % doc, 'seq': seq, 'deps': {},
+            'ops': [{'action': 'set', 'obj': ROOT_ID,
+                     'key': 'k%d' % (seq % 3),
+                     'value': '%s-%d' % (doc, seq)}]}
+
+
+def zipf_seqs(docs, total):
+    """{doc: n_changes} by zipf rank (the position in `docs`)."""
+    weights = [1.0 / (i + 1) for i in range(len(docs))]
+    scale = total / sum(weights)
+    return {d: max(2, int(round(w * scale)))
+            for d, w in zip(docs, weights)}
+
+
+def pick_docs(ring, n_docs, n_hot=6):
+    """`n_docs` doc names whose `n_hot` hottest zipf ranks all hash to
+    one member of `ring`, the rest round-robin over the others, so a
+    rebalance has real skew to correct."""
+    by_owner = {}
+    for d in ['doc-%03d' % i for i in range(120)]:
+        by_owner.setdefault(ring.owner(d), []).append(d)
+    hot_owner = max(by_owner, key=lambda r: len(by_owner[r]))
+    others = [by_owner[r] for r in sorted(by_owner) if r != hot_owner]
+    rest = [d for group in zip(*others) for d in group]
+    return (by_owner[hot_owner][:n_hot] + rest)[:n_docs]
+
+
+def routed_writers(path, streams, n_writers, timeout=300.0):
+    """One thread per writer over raw connections to `path`; writer w
+    applies the streams of docs w, w + n_writers, ... in seq order, one
+    change a request, under the id '<doc>:<seq>', and re-sends on a
+    retryable answer (Overloaded, ReplicaUnavailable).  Returns
+    ({doc: [acked seq, ...]}, {id: raw response}, retries, errors)."""
+    acks, raw, retries, errors = {}, {}, [], []
+    lock = threading.Lock()
+
+    def writer(w):
+        try:
+            mine = [(d, ch) for i, (d, chs) in enumerate(streams)
+                    for ch in chs if i % n_writers == w]
+            with RawConn(path, timeout) as c:
+                for doc, ch in mine:
+                    rid = '%s:%d' % (doc, ch['seq'])
+                    while True:
+                        line = c.call({'id': rid, 'cmd': 'apply_changes',
+                                       'doc': doc, 'changes': [ch]})
+                        resp = json.loads(line)
+                        if resp.get('errorType') in ('Overloaded',
+                                                     'ReplicaUnavailable'):
+                            with lock:
+                                retries.append(rid)
+                            time.sleep((resp.get('retryAfterMs') or 50)
+                                       / 1000.0)
+                            continue
+                        got = resp['result']['clock'][ch['actor']]
+                        if got != ch['seq']:
+                            raise AssertionError('ack clock %r for %s'
+                                                 % (got, rid))
+                        with lock:
+                            acks.setdefault(doc, []).append(ch['seq'])
+                            raw[rid] = line
+                        break
+        except Exception as e:                      # noqa: BLE001
+            errors.append('writer %d: %s: %s' % (w, type(e).__name__, e))
+
+    threads = [threading.Thread(target=writer, args=(w,))
+               for w in range(n_writers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    return acks, raw, retries, errors
+
+
+def serial_route_replay(path, seqs):
+    """The streams of `seqs` ({doc: n_changes}) through one connection
+    to `path`, one request at a time: ({id: raw response}, {doc: raw
+    final patch})."""
+    raw, finals = {}, {}
+    with RawConn(path) as c:
+        for doc in sorted(seqs):
+            for s in range(1, seqs[doc] + 1):
+                rid = '%s:%d' % (doc, s)
+                raw[rid] = c.call({'id': rid, 'cmd': 'apply_changes',
+                                   'doc': doc,
+                                   'changes': [route_change(doc, s)]})
+            finals[doc] = c.call({'id': 'final', 'cmd': 'get_patch',
+                                  'doc': doc})
+    return raw, finals
