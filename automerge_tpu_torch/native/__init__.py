@@ -316,21 +316,20 @@ def apply_payloads_pipelined(pools_payloads):
         raise errors[0]
 
 
-def _pool_device(device):
-    """The torch device a pool runs on: CUDA when `device` is None (and
-    an error when there is none), else `device`, which must be cuda or
-    cpu."""
+def _pool_device(device, name='NativeDocPool'):
+    """The torch device a pool (class `name`) runs on: CUDA when `device`
+    is None (and an error when there is none), else `device`, which must
+    be cuda or cpu."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                'NativeDocPool() runs on CUDA and no CUDA device is '
-                'available; pass device="cpu" for the plain PyTorch '
-                'versions of the kernels')
+                '%s() runs on CUDA and no CUDA device is available; pass '
+                'device="cpu" for the plain PyTorch versions of the '
+                'kernels' % name)
         device = 'cuda'
     device = torch.device(device)
     if device.type not in ('cuda', 'cpu'):
-        raise ValueError('NativeDocPool runs on cuda or cpu, not %s'
-                         % device)
+        raise ValueError('%s runs on cuda or cpu, not %s' % (name, device))
     return device
 
 

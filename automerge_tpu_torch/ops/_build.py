@@ -49,6 +49,14 @@ KERNELS = {
         'amtpu_torch_members': (ctypes.c_int, [ctypes.c_void_p] * 13 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]),
     },
+    'clock': {
+        'amtpu_torch_schedule': (ctypes.c_int, [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p]),
+    },
+    'dominance_indexes': {
+        'amtpu_torch_dominance_scan': (ctypes.c_int, [ctypes.c_void_p] * 9 + [
+            ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]),
+    },
 }
 
 _loaded = {}

@@ -180,3 +180,77 @@ def dominance_grouped(vis0, elem_rank, op_elem, op_rank, op_delta, op_valid,
         upd.scatter_add_(1, tgt, d)
         vis = vis + upd[:, :L]
     return idx
+
+
+def dominance_indexes(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
+                      op_delta, op_valid, chunk=128):
+    """Per-op list indexes as time-windowed dominance counts, over whole
+    docs (the single-device form of `automerge_tpu/ops/list_rank.py::
+    dominance_indexes`, vmapped over docs):
+
+      index(op t on element e) = #{e' : obj(e') == obj(e),
+                                   rank(e') < rank(e), visible before t}
+
+    Args ([D, ...] for a batch of docs, or without the D axis for one):
+      elem_obj, elem_rank: [D, L] int32; vis0: [D, L] float32 (0/1).
+      op_elem: [D, T] int32 -- element index each op touches (-1 = none).
+      op_obj, op_rank: [D, T] int32 -- of the touched element.
+      op_delta: [D, T] int32 -- visibility change the op causes.
+      op_valid: [D, T] bool.
+
+    Ops walk in application order in chunks of `chunk`, as the JAX
+    function's scan does, in float32: each chunk counts against the
+    visibility at its start with one masked [L] x [L, K] product, adds
+    the K x K corrections of earlier ops of the chunk (every op, valid
+    or not, of the same object and a lower rank, weighted by its delta)
+    and applies the deltas of valid ops with 0 <= op_elem < L.  The
+    counts are exact below 2^24.  This is the plain version;
+    `dominance_kernel.dominance_indexes_auto` runs the card's route.
+
+    Returns index [D, T] int32 (or [T])."""
+    one = elem_obj.dim() == 1
+    if one:
+        return dominance_indexes(
+            elem_obj[None], elem_rank[None], vis0[None], op_elem[None],
+            op_obj[None], op_rank[None], op_delta[None], op_valid[None],
+            chunk=chunk)[0]
+    D, L = elem_obj.shape
+    T = op_elem.shape[1]
+    K = chunk
+    dev = elem_obj.device
+    f32 = torch.float32
+    n_chunks = (T + K - 1) // K
+    Tp = n_chunks * K
+
+    def pad(x, fill):
+        out = torch.full((D, Tp), fill, dtype=x.dtype, device=dev)
+        out[:, :T] = x
+        return out
+
+    e_p, o_p, r_p = pad(op_elem, -1), pad(op_obj, -2), pad(op_rank, -1)
+    d_p, v_p = pad(op_delta, 0), pad(op_valid, False)
+    vis = vis0.to(f32).clone()
+    tri = (torch.arange(K, device=dev)[:, None]
+           < torch.arange(K, device=dev)[None, :])
+    out = torch.empty((D, Tp), dtype=torch.int32, device=dev)
+    # docs per block of the [docs, L, K] mask (at most 2^24 entries)
+    step = max(1, (1 << 24) // max(L * K, 1))
+    for c0 in range(0, Tp, K):
+        e, o, r = e_p[:, c0:c0 + K], o_p[:, c0:c0 + K], r_p[:, c0:c0 + K]
+        d, v = d_p[:, c0:c0 + K], v_p[:, c0:c0 + K]
+        base = torch.empty((D, K), dtype=f32, device=dev)
+        for b0 in range(0, D, step):
+            blk = slice(b0, min(b0 + step, D))
+            mask = (elem_obj[blk, :, None] == o[blk, None, :]) & \
+                (elem_rank[blk, :, None] < r[blk, None, :])
+            base[blk] = torch.bmm(vis[blk, None, :], mask.to(f32))[:, 0]
+        cross = tri & (o[:, :, None] == o[:, None, :]) & \
+            (r[:, :, None] < r[:, None, :])
+        corr = (cross.to(f32) * d.to(f32)[:, :, None]).sum(dim=1)
+        out[:, c0:c0 + K] = (base + corr).to(torch.int32)
+        in_block = (e >= 0) & (e < L) & v
+        tgt = torch.where(in_block, e, L).long()
+        upd = torch.zeros((D, L + 1), dtype=f32, device=dev)
+        upd.scatter_add_(1, tgt, torch.where(in_block, d, 0).to(f32))
+        vis = vis + upd[:, :L]
+    return out[:, :T]

@@ -582,13 +582,14 @@ def escalate_overflow_collect_arrays(pending, need_winner=True):
     return chunks
 
 
-def merge_escalated_arrays(winner, conflicts, alive, overflow, chunks):
+def merge_escalated_arrays(winner, conflicts, alive, overflow, chunks,
+                           visible_before=None):
     """Merges EscalatedChunks into the (host, writable) register output
-    arrays: scatters winner/conflicts/alive, widens the conflicts matrix
-    when a tier kept more survivors than its column count, and clears the
-    overflow flag of every resolved row.  Flags left standing are exactly
-    the rows the caller routes to the oracle.  Returns the four (possibly
-    replaced) arrays."""
+    arrays: scatters winner/conflicts/alive (and visible_before, when
+    given), widens the conflicts matrix when a tier kept more survivors
+    than its column count, and clears the overflow flag of every resolved
+    row.  Flags left standing are exactly the rows the caller routes to
+    the oracle.  Returns the four (possibly replaced) arrays."""
     if not chunks:
         return winner, conflicts, alive, overflow
     width = conflicts.shape[1] if conflicts.ndim == 2 else 0
@@ -610,4 +611,135 @@ def merge_escalated_arrays(winner, conflicts, alive, overflow, chunks):
             conflicts[ch.rows[ch.conf_rows], :m] = ch.conflicts[:, :m]
         alive[ch.rows] = ch.alive
         overflow[ch.rows] = 0
+        if visible_before is not None:
+            visible_before[ch.rows] = ch.visible_before
+    return winner, conflicts, alive, overflow
+
+
+# ---------------------------------------------------------------------------
+# the ladder over host-built member windows (the batched engine's half)
+#
+# The engine resolves its registers in sliding mode at WINDOW and flags
+# saturated windows; it has no C++ layout, so the member windows of every
+# flagged group are built here on the host (`_member_windows`) in the same
+# CSR record the C++ escalation layout emits, and go up the same tiers.
+# ---------------------------------------------------------------------------
+
+def _member_windows(rows, actor, seq):
+    """Member-candidate windows for ONE escalated group, vectorized.
+
+    `rows` are the group's batch rows in (group, time) order.  Row j's
+    candidacy ends at the first later row of the same actor with a
+    different seq (a same-actor successor supersedes it; same-change
+    duplicate assigns share a seq and accumulate), and the superseding
+    row itself still sees j.  So j is a member of row i's window iff
+    j < i <= kill(j): interval expansion, not per-row list copies.
+
+    Returns the CSR group record (rows, lens [k], vals, width): row i's
+    candidates are the next lens[i] entries of vals (group-local
+    indexes), the layout `escalate_dispatch_groups` takes."""
+    k = len(rows)
+    a = np.asarray(actor[rows])
+    s = np.asarray(seq[rows])
+    # kill[j]: reverse scan over each actor's time-ordered rows (the
+    # stable argsort groups actors while keeping time order within)
+    order = np.argsort(a, kind='stable')
+    kill = np.full(k, k, np.int64)
+    for x in range(k - 2, -1, -1):
+        j, nxt = order[x], order[x + 1]
+        if a[j] == a[nxt]:
+            kill[j] = nxt if s[j] != s[nxt] else kill[nxt]
+    # per-row window width: lens(i) = #{j : j < i <= kill(j)}, by a
+    # difference array
+    delta = np.zeros(k + 2, np.int64)
+    delta[1:k + 1] += 1
+    np.subtract.at(delta, kill + 1, 1)
+    lens_i = np.cumsum(delta)[:k]
+    width = int(lens_i.max(initial=0))
+    if width == 0:
+        return (rows, lens_i, np.zeros(0, np.int64), 0)
+    # expand each j into its target rows [j+1, min(kill(j), k-1)] as (i, j)
+    # pairs (kill == k marks never-killed candidates); sorted by i, the j's
+    # are exactly the CSR value runs
+    jlens = np.minimum(kill, k - 1) - np.arange(k)
+    total = int(jlens.sum())
+    j_rep = np.repeat(np.arange(k, dtype=np.int64), jlens)
+    cum = np.concatenate(([0], np.cumsum(jlens)[:-1]))
+    i_tgt = j_rep + 1 + (np.arange(total) - np.repeat(cum, jlens))
+    ordp = np.argsort(i_tgt, kind='stable')
+    return (rows, lens_i, j_rep[ordp], width)
+
+
+def escalate_overflow_dispatch(group, time, actor, seq, is_del,
+                               clock_table, clock_idx, overflow,
+                               want_visible_before=True):
+    """The dispatch half of the ladder over host-built member windows:
+    every row of every group with a flagged row is re-resolved (flags may
+    cover only the saturated suffix).  Columns are host numpy in batch
+    row order (padding rows carry group == -1); clock_table is a tensor
+    on the device the tiers run on.  Returns (pending, oracle_rows,
+    tier_rows) as `escalate_dispatch_groups` does."""
+    group = np.asarray(group)
+    time = np.asarray(time)
+    flagged = np.asarray(overflow, bool) & (group >= 0)
+    ovf_gids = np.unique(group[flagged])
+    if ovf_gids.size == 0:
+        return [], np.zeros((0,), np.int32), {}
+    # all rows of the flagged groups, in (group, time) order
+    sel_rows = np.nonzero(np.isin(group, ovf_gids))[0]
+    sel_rows = sel_rows[np.lexsort((time[sel_rows], group[sel_rows]))]
+    bounds = np.nonzero(np.diff(group[sel_rows]))[0] + 1
+    groups = [_member_windows(rows, np.asarray(actor), np.asarray(seq))
+              for rows in np.split(sel_rows, bounds)]
+    return escalate_dispatch_groups(
+        groups, time, actor, seq, is_del, clock_table, clock_idx,
+        want_visible_before=want_visible_before)
+
+
+def escalate_overflow_collect(pending):
+    """The per-row form of the collect half: {row: (winner_row,
+    [conflict_rows...], alive_after, visible_before)} over global rows."""
+    resolved = {}
+    for ch in escalate_overflow_collect_arrays(pending):
+        conf_of = {}
+        for i, local in enumerate(ch.conf_rows):
+            conf_of[int(local)] = [int(c) for c in ch.conflicts[i]
+                                   if c >= 0]
+        for i, r in enumerate(ch.rows):
+            resolved[int(r)] = (int(ch.winner[i]), conf_of.get(i, []),
+                                int(ch.alive[i]),
+                                bool(ch.visible_before[i]))
+    return resolved
+
+
+def escalate_overflow(group, time, actor, seq, is_del, clock_table,
+                      clock_idx, overflow):
+    """`escalate_overflow_dispatch` then `escalate_overflow_collect`:
+    returns (resolved, oracle_rows, tier_rows)."""
+    pending, oracle_rows, tier_rows = escalate_overflow_dispatch(
+        group, time, actor, seq, is_del, clock_table, clock_idx, overflow)
+    return escalate_overflow_collect(pending), oracle_rows, tier_rows
+
+
+def merge_escalated(winner, conflicts, alive, overflow, resolved):
+    """Scatters `escalate_overflow`'s per-row results into the (host)
+    register output arrays, widening the conflicts matrix when a tier kept
+    more survivors than its column count, and clearing the overflow flag
+    of every resolved row.  Returns the four (possibly replaced)
+    arrays."""
+    if not resolved:
+        return winner, conflicts, alive, overflow
+    width = conflicts.shape[1] if conflicts.ndim == 2 else 0
+    need = max(len(c) for (_, c, _, _) in resolved.values())
+    if need > width:
+        wide = np.full((conflicts.shape[0], need), -1, conflicts.dtype)
+        wide[:, :width] = conflicts
+        conflicts = wide
+    for row, (w, confs, al, _vb) in resolved.items():
+        winner[row] = w
+        conflicts[row, :] = -1
+        if confs:
+            conflicts[row, :len(confs)] = confs
+        alive[row] = al
+        overflow[row] = 0
     return winner, conflicts, alive, overflow

@@ -108,6 +108,23 @@ def is_checkpoint(data):
         or data.startswith(CKPT_V2_PREFIX)
 
 
+def checkpoint_raw_changes(data):
+    """Every raw change of a checkpoint (either format), application
+    order: the v2 chunks decoded, then the tail.  A corrupt container
+    raises ValueError, whatever the parse tripped on."""
+    if data.startswith(CKPT_V1_PREFIX):
+        try:
+            return split_changes_array(
+                memoryview(data)[len(CKPT_V1_PREFIX):])
+        except Exception as e:
+            raise ValueError('corrupt checkpoint container: %s' % e)
+    _frontier, chunks, tail = unpack_checkpoint_parts(data)
+    out = []
+    for blob in chunks + [tail]:
+        out.extend(decode_columnar(blob))
+    return out
+
+
 def unpack_checkpoint_parts(data):
     """A v2 container -> (frontier, chunks, tail blob), nothing decoded.
     A corrupt container raises ValueError, whatever the parse tripped

@@ -1,6 +1,7 @@
 """Batch workloads of the repository's benchmark configurations.
 
-`build_config_3` is the headline catch-up batch (concurrent interleaved
+`build_config_1` is one Text doc of 10,000 sequential inserts by two
+actors (20,002 ops); `build_config_3` is the headline catch-up batch (concurrent interleaved
 Text editing: 4096 docs x 8 actors x 2 rounds x 16 ops per change, about
 1.06 M ops); `build_config_4` the map-only batch (1024 Table docs,
 16 rows per actor, concurrent row add/update); `build_config_5` the
@@ -61,6 +62,36 @@ def text_doc_changes(tid, n_actors, n_rounds, ops_per_change,
             changes.append({'actor': actor, 'seq': seq,
                             'deps': {'a0': 1}, 'ops': ops})
     return changes
+
+
+def build_config_1(rng, chars=10000, per_change=50):
+    """Config 1: one Text doc, 2 actors taking turns, `chars` sequential
+    character inserts (an insert and a set each) in changes of
+    `per_change` characters.  `rng` is unused: the doc is deterministic,
+    as in `bench.py`."""
+    tid = 'text-0'
+    changes = [{'actor': 'a0', 'seq': 1, 'deps': {}, 'ops': [
+        {'action': 'makeText', 'obj': tid},
+        {'action': 'link', 'obj': ROOT_ID, 'key': 'text', 'value': tid}]}]
+    seqs = {'a0': 1, 'a1': 0}
+    prev = '_head'
+    elem = 0
+    for start in range(0, chars, per_change):
+        actor = 'a%d' % ((start // per_change) % 2)
+        ops = []
+        for _ in range(min(per_change, chars - start)):
+            elem += 1
+            ops.append({'action': 'ins', 'obj': tid, 'key': prev,
+                        'elem': elem})
+            ops.append({'action': 'set', 'obj': tid,
+                        'key': '%s:%d' % (actor, elem),
+                        'value': chr(97 + elem % 26)})
+            prev = '%s:%d' % (actor, elem)
+        seqs[actor] += 1
+        deps = {a: s for a, s in seqs.items() if a != actor and s}
+        changes.append({'actor': actor, 'seq': seqs[actor], 'deps': deps,
+                        'ops': ops})
+    return {0: changes}
 
 
 def build_config_3(rng, n_docs=4096, n_actors=N_ACTORS, n_rounds=N_ROUNDS,

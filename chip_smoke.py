@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
-port's C++ host runtime and its three CUDA kernels from this checkout
-(registers K1, dominance K2, members K3), then:
+port's C++ host runtime and its four CUDA kernels from this checkout
+(registers K1, dominance K2, members K3, the causal schedule
+`clock.cu`), then:
 
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
@@ -57,8 +58,8 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      doc with every other doc's bytes equal to the fault-free run's, two
      transient faults must retry to equal bytes with a rollback, and no
      C++ batch handle may be left live;
-  8. runs the cold start of `bench.py --coldstart` at its 100,000 docs
-     (1,700,000 changes): builds the corpus on a card pool (K1 and K2
+  8. runs the cold start of `bench.py --coldstart` at 50,000 of its
+     100,000 docs (850,000 changes; cut for the time limit): builds the corpus on a card pool (K1 and K2
      launch), compacts every other doc, saves all into a durable
      `ColdStore`, restores it into a card `ShardedNativePool(4)` serially
      and fanned out (every doc counted, sampled saves and patches equal
@@ -143,6 +144,24 @@ port's C++ host runtime and its three CUDA kernels from this checkout
      forced gap of 5 changes by resync, answers a write with ReadOnly,
      and a second replica bootstraps from the gateway's write-through
      store, all equal to the upstream and to a CPU gateway.
+  14. runs the batched Python engine and the single-device resolver
+     step (after phase 13, before the checks of phase 11, which hold
+     their kernel calls too): (a) `TPUDocPool(device='cuda')` applies
+     config 3 (4,096 docs, 1,064,960 ops) as one `apply_batch`, every
+     patch equal to phase 1's and every whole-doc patch to the card
+     pool's (K1 at W = 8, K2); (b) hot keys of 40 and 200 writers
+     through the card engine (K3, tiers 64 and 256, no oracle row),
+     patches and counters equal to a CPU engine's; (c) `single_step`
+     over `mesh_encode.scaling_workload(2048)` (73,728 ops): every output
+     key bit-equal to the CPU step's, the schedule kernel (`clock.cu`),
+     K1 and K2 (through the whole-doc dominance route) launch, and
+     `verify_against_pool` passes through a card engine; (d) config 1
+     (one Text doc, 10,000 inserts) through the step as `bench.py::
+     run_config_1_mesh` runs it at sp = 1 (a warm-up, then the median of
+     3 timed runs), bit-equal to the CPU step and verified, and through
+     one card `NativeDocPool`, its patch equal to the card engine's.
+     Phase 3's hostile-staging lane also runs the card engine and the
+     step with every uploaded host array overwritten.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -417,6 +436,45 @@ def members_bound(torch, args, window, alive_after, want_vb):
         else 'operations'
 
 
+def schedule_bound(args):
+    """Bytes: the clock, the three change columns, the dependency rows
+    and `valid` read once, the order and the new clock written once.
+    Operations: one pass over every valid change (the least any schedule
+    needs: each change's readiness is tested at least once), one compare
+    per actor of its dependency row and a few for the clock update."""
+    clock, actor, _seq, deps, valid = args
+    D, A = clock.shape
+    C = actor.shape[1]
+    moved = D * A * 4 * 2 + D * C * (4 * 2 + 1 + 4) + D * C * A * 4
+    ops = int(valid.sum()) * (A + 4)
+    t_bytes = moved / H100_BYTES_PER_S
+    t_ops = ops / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
+def indexes_bound(args):
+    """Bytes: the three element columns and the five op columns read
+    once, the index written once.  Operations: per doc one add per
+    element for the start-state prefix, and a compare and an add per pair
+    of valid ops in one chunk of 64 ops (as `dominance_bound` counts the
+    regrouped form, whose chunk that is)."""
+    chunk = 64
+    elem_obj, op_valid = args[0], args[7]
+    D, L = elem_obj.shape
+    T = op_valid.shape[1]
+    moved = D * L * 12 + D * T * (4 * 4 + 1) + D * T * 4
+    import torch
+    v = op_valid.long()
+    v = torch.cat([v, v.new_zeros((D, (-T) % chunk))], dim=1)
+    v = v.reshape(D, -1, chunk).sum(2)
+    ops = D * (L + 2) + 2 * int((v * (v - 1) // 2).sum())
+    t_bytes = moved / H100_BYTES_PER_S
+    t_ops = ops / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
 # -- each kernel against its plain version on the card ---------------------
 
 def check_registers(torch, card, label, args, window, timed=True):
@@ -499,6 +557,102 @@ def check_members(torch, card, label, args, window, want_vb=True,
     if bad:
         raise AssertionError('members %s: %d mismatches' % (label, bad))
     return err, ms, bound, by
+
+
+def check_schedule(torch, card, label, args, timed=True):
+    """Bit-equality of the schedule kernel with its plain version (torch
+    ops on the card), and (`timed`) the kernel's own time and the plain
+    version's; returns (max abs error, ms, plain ms, bound ms, bound by),
+    the last four None when not timed."""
+    from automerge_tpu_torch.ops import clock, clock_kernel
+    got = clock_kernel.schedule_queue_cuda(*args)
+    want = clock.schedule_queue_batch(*args)
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    err = max(int((g.long() - w.long()).abs().max()) if w.numel() else 0
+              for g, w in zip(got, want))
+    if bad:
+        raise AssertionError('schedule %s: %d mismatches' % (label, bad))
+    if not timed:
+        return err, None, None, None, None
+    ms = device_ms(torch, lambda: clock_kernel.schedule_queue_cuda(*args))
+    plain_ms = device_ms(torch, lambda: clock.schedule_queue_batch(*args),
+                         reps=2, rounds=3)
+    bound, by = schedule_bound(args)
+    D, A = args[0].shape
+    order, valid = want[0], args[4]
+    log('schedule %s D=%d C=%d A=%d: mismatches 0 (of %d valid changes %d '
+        'applied, %d duplicates, %d never ready), kernel %.4f ms, plain '
+        '%.4f ms, bound %.3g ms (%s) on %s' % (
+            label, D, args[1].shape[1], A, int(valid.sum()),
+            int(((order >= 0) & (order != clock.NOT_APPLIED)).sum()),
+            int((order == clock.DUPLICATE).sum()),
+            int(((order == clock.NOT_APPLIED) & valid).sum()), ms, plain_ms,
+            bound, by, card))
+    return err, ms, plain_ms, bound, by
+
+
+def check_indexes(torch, card, label, args, timed=True):
+    """Bit-equality of the whole-doc dominance route (regroup + K2) with
+    the plain `list_rank.dominance_indexes` (chunk 128, the step's
+    default) on the card, and (`timed`) both times; returns (max abs
+    error, ms, plain ms, bound ms, bound by), the last four None when
+    not timed."""
+    from automerge_tpu_torch.ops import dominance_kernel, list_rank
+    got = dominance_kernel.dominance_indexes_cuda(*args)
+    want = list_rank.dominance_indexes(*args, chunk=128)
+    bad = int((got != want).sum())
+    err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+    if bad:
+        raise AssertionError('dominance_indexes %s: %d mismatches'
+                             % (label, bad))
+    if not timed:
+        return err, None, None, None, None
+    ms = device_ms(torch, lambda: dominance_kernel.dominance_indexes_cuda(
+        *args))
+    plain_ms = device_ms(torch, lambda: list_rank.dominance_indexes(
+        *args, chunk=128), reps=2, rounds=3)
+    bound, by = indexes_bound(args)
+    D, L = args[0].shape
+    log('dominance_indexes %s D=%d L=%d T=%d: mismatches 0 (max index %d), '
+        'route %.4f ms, plain %.4f ms, bound %.3g ms (%s) on %s' % (label, D, L, args[3].shape[1], int(want.max())
+                   if want.numel() else 0, ms, plain_ms, bound, by, card))
+    return err, ms, plain_ms, bound, by
+
+
+def step_cases(torch, np, card):
+    """The schedule kernel and the whole-doc dominance route at seeded
+    random shapes (duplicates, never-ready changes, padding rows, A above
+    a warp; invalid ops and padding elements), and the chunk-scan kernel
+    (`csrc/dominance_indexes.cu`, off the step's path) on inputs that do
+    not regroup; returns the largest error of each (0: bit-equal)."""
+    from automerge_tpu_torch.ops import dominance_kernel
+    from torch_step_cases import (INDEXES_SHAPES, SCAN_SHAPES,
+                                  SCHEDULE_SHAPES, dominance_indexes_case,
+                                  dominance_scan_case, schedule_case)
+    dev = torch.device('cuda')
+
+    def on_card(case):
+        return [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+
+    err_s = err_i = 0
+    for shape in SCHEDULE_SHAPES:
+        e = check_schedule(torch, card, 'random', on_card(schedule_case(
+            np.random.RandomState(sum(shape)), *shape)))[0]
+        err_s = max(err_s, e)
+    for shape in INDEXES_SHAPES:
+        e = check_indexes(torch, card, 'random', on_card(
+            dominance_indexes_case(np.random.RandomState(sum(shape)),
+                                   *shape)))[0]
+        err_i = max(err_i, e)
+    for shape in SCAN_SHAPES:
+        args = on_card(dominance_scan_case(np.random.RandomState(sum(shape)),
+                                           *shape))
+        if dominance_kernel.regroupable(*args):
+            raise AssertionError('a chunk-dependent case regroups')
+        e = check_indexes(torch, card, 'chunk-dependent (scan kernel, '
+                          'chunk 128)', args)[0]
+        err_i = max(err_i, e)
+    return err_s, err_i
 
 
 def member_cases(torch, np, card):
@@ -969,10 +1123,11 @@ def fault_phase(card, drive, K1, K2, K3, workloads):
                 'no live batch handle; %s on %s' % (lane, delta, card))
 
 
-#: the cold-start corpus: `bench.py --coldstart`'s default doc count, its
-#: sample stride for the save and patch comparison, and the docs the
-#: replay arm restores
-COLDSTART_DOCS = 100000
+#: the cold-start corpus: half of `bench.py --coldstart`'s default of
+#: 100,000 docs (cut so that the whole script keeps inside its time
+#: limit), its sample stride for the save and patch comparison, and the
+#: docs the replay arm restores
+COLDSTART_DOCS = 50000
 COLDSTART_SAMPLE = 1562
 COLDSTART_REPLAY_DOCS = 4096
 
@@ -984,8 +1139,8 @@ def _rss_mb():
 
 
 def coldstart_phase(torch, card, workloads, native, drive, K1, K2):
-    """Phase 8: the cold start as `bench.py --coldstart` runs it, at its
-    default of COLDSTART_DOCS docs (17 changes each).  The corpus is
+    """Phase 8: the cold start as `bench.py --coldstart` runs it, at
+    COLDSTART_DOCS docs (17 changes each).  The corpus is
     built on a card pool (batches of 512 docs, two waves each, K1 and K2
     launching), every other doc compacted, every doc saved into a
     durable `ColdStore` in a temporary directory; then restored into a
@@ -2230,6 +2385,172 @@ def patch_slices(buf):
     return out
 
 
+#: the batched engine's stage spans (phase 14 lane (a))
+ENGINE_SPANS = ('engine.schedule', 'engine.prepass', 'engine.encode',
+                'engine.kernels', 'engine.emit', 'engine.materialize')
+
+
+def step_equal(label, got, want):
+    """Every output key of two `single_step` results bit-equal."""
+    for k in want:
+        if not bool((got[k].cpu() == want[k].cpu()).all()):
+            raise AssertionError('%s: output %s differs from the CPU step'
+                                 % (label, k))
+
+
+def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
+                 batch3, out_gpu3, pool3, packed):
+    """Phase 14: the batched engine and the single-device step.
+    (a) `TPUDocPool(device='cuda')` applies config 3 (4,096 docs,
+    1,064,960 ops) as one `apply_batch`: every doc's patch equal to phase
+    1's (the card pool's bytes), every whole-doc `get_patch` equal to the
+    card pool's; logs wall, op/s, the six `engine.*` spans and the K1 and
+    K2 launches.  (b) hot keys of 40 and 200 writers: K3 launches, no
+    oracle row, patches and `fallback.*` counters equal to a CPU
+    engine's.  (c) `single_step` on `scaling_workload(2048)` (73,728 ops,
+    the multichip workload at dp = 1): every output key bit-equal to the
+    CPU step's, the schedule kernel, K1 and K2 (through the whole-doc
+    route) launch, `verify_against_pool` through a card engine.  (d)
+    config 1 (one Text doc, 10,000 inserts) as `bench.py::
+    run_config_1_mesh` runs it at sp = 1: a counted warm-up run, then the
+    median of 3 timed runs, bit-equal to the CPU step, verified against a
+    card engine; and config 1 through one card `NativeDocPool`, its patch
+    equal to the card engine's.  Returns the phase's report."""
+    import msgpack
+
+    from automerge_tpu_torch import telemetry, trace
+    from automerge_tpu_torch.native import NativeDocPool
+    from automerge_tpu_torch.ops import list_rank
+    from automerge_tpu_torch.parallel import mesh, mesh_encode
+    from automerge_tpu_torch.parallel.engine import TPUDocPool
+    t_phase = time.perf_counter()
+    report = {}
+
+    # -- (a) config 3 through the card engine ----------------------------
+    n_ops3 = workloads.op_count(batch3)
+    want = msgpack.unpackb(out_gpu3, raw=False)
+    engine = TPUDocPool(device='cuda')
+    was_on = telemetry.enabled()
+    telemetry.phase_reset()
+    telemetry.enable()
+    try:
+        got, wall, m = drive('engine config3 gpu', lambda: engine.apply_batch(
+            batch3), need=(K1, K2), waves=None)
+        t = time.perf_counter()
+        mat = {d: engine.get_patch(d) for d in batch3}
+        mat_s = time.perf_counter() - t
+    finally:
+        if not was_on:
+            telemetry.disable()
+    spans = {k: v['s'] for k, v in telemetry.phase_snapshot().items()
+             if k in ENGINE_SPANS}
+    bad = [d for d in batch3 if got[d] != want[str(d)]]
+    if bad:
+        raise AssertionError('engine config3: %d patches differ from phase '
+                             '1\'s, first doc %r' % (len(bad), bad[0]))
+    bad = [d for d in batch3 if mat[d] != pool3.get_patch(str(d))]
+    if bad:
+        raise AssertionError('engine config3: %d whole-doc patches differ '
+                             'from the card pool\'s' % len(bad))
+    report['config3'] = {'docs': len(batch3), 'ops': n_ops3, 'wall_s': wall,
+                         'ops_per_s': n_ops3 / wall,
+                         'get_patch_all_s': mat_s, 'spans_s': spans,
+                         'launches': {k: m.get(k, 0) for k in (K1, K2)}}
+    log('engine config3 gpu: %d docs, %d ops in %.3f s (%.0f op/s); every '
+        'patch equal to phase 1\'s, %d whole-doc patches equal to the card '
+        'pool\'s in %.3f s; spans %s; launches K1 %d K2 %d on %s' % (
+            len(batch3), n_ops3, wall, n_ops3 / wall, len(mat), mat_s,
+            {k: round(v, 3) for k, v in spans.items()}, m.get(K1, 0),
+            m.get(K2, 0), card))
+    del engine, got, mat
+
+    # -- (b) hot keys through the card engine ----------------------------
+    for n_writers in (40, 200):
+        payloads = workloads.hot_key_batch(n_writers)
+        eg = TPUDocPool(device='cuda')
+        outs, _, mh = drive('engine hot key %d gpu' % n_writers, lambda: [
+            eg.apply_batch(b) for b in payloads], need=(K3,), waves=None)
+        trace.reset()
+        ec = TPUDocPool(device='cpu')
+        outs_c = [ec.apply_batch(b) for b in payloads]
+        tiers = {k: v for k, v in mh.items() if k.startswith('fallback.')}
+        tiers_c = {k: v for k, v in trace.metrics().items()
+                   if k.startswith('fallback.')}
+        if outs != outs_c or tiers != tiers_c:
+            raise AssertionError('engine hot key %d: card %s, CPU %s'
+                                 % (n_writers, tiers, tiers_c))
+        report['hot_key_%d' % n_writers] = tiers
+        log('engine hot key %d writers: patches equal to the CPU engine\'s, '
+            'counters %s on both, K3 launches %d on %s' % (
+                n_writers, tiers, mh.get(K3, 0), card))
+
+    # -- (c) the step on the multichip workload at dp = 1 -----------------
+    wl = mesh_encode.scaling_workload(2048)
+    t = time.perf_counter()
+    batch, meta = mesh_encode.encode_batch(wl)
+    enc_s = time.perf_counter() - t
+    n_iters = list_rank.ceil_log2(max(meta['max_arena'], 1)) + 1
+    n_ops = workloads.op_count(wl)
+    out, wall_c, mc = drive('step scaling 2048 gpu', lambda: mesh.single_step(
+        batch, n_iters), need=(KS, K1, K2, KI), waves=None)
+    step_equal('step scaling 2048', out,
+               mesh.single_step(batch, n_iters, device='cpu'))
+    t = time.perf_counter()
+    mesh_encode.verify_against_pool(wl, meta, out)
+    ver_s = time.perf_counter() - t
+    report['scaling_2048'] = {'docs': len(wl), 'ops': n_ops,
+                              'encode_s': enc_s, 'step_s': wall_c,
+                              'verify_s': ver_s,
+                              'shapes': {k: list(batch[k].shape) for k in (
+                                  'ch_deps', 'rc', 'eo', 'op_elem')}}
+    log('step scaling 2048 gpu: %d docs, %d ops, encode %.3f s, step %.4f s '
+        '(first run), every output key bit-equal to the CPU step, verified '
+        'against a card engine in %.3f s; launches %s on %s' % (
+            len(wl), n_ops, enc_s, wall_c, ver_s,
+            {k: mc.get(k, 0) for k in (KS, K1, K2, KI)}, card))
+
+    # -- (d) config 1: the step and one card pool -------------------------
+    wl1 = workloads.build_config_1(random.Random(7))
+    n_ops1 = workloads.op_count(wl1)
+    batch1, meta1 = mesh_encode.encode_batch(wl1, sp=1)
+    n_iters1 = list_rank.ceil_log2(max(meta1['max_arena'], 1)) + 1
+    out1, wall_w, _ = drive('step config1 gpu', lambda: mesh.single_step(
+        batch1, n_iters1), need=(KS, K1, K2, KI), waves=None)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mesh.single_step(batch1, n_iters1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    med = sorted(times)[1]
+    step_equal('step config1', out1,
+               mesh.single_step(batch1, n_iters1, device='cpu'))
+    mesh_encode.verify_against_pool(wl1, meta1, out1)
+    pool1 = NativeDocPool()
+    payload1 = packed(wl1)
+    out_p, wall_p, _ = drive('config1 gpu', lambda: pool1.apply_batch_bytes(
+        payload1), need=(K1, K2))
+    eng1 = TPUDocPool(device='cuda').apply_batch(wl1)
+    if msgpack.unpackb(out_p, raw=False)['0'] != eng1[0] or \
+            out_p != NativeDocPool(device='cpu').apply_batch_bytes(payload1):
+        raise AssertionError('config1: the card pool\'s patch differs from '
+                             'the card engine\'s or the CPU pool\'s')
+    report['config1'] = {'ops': n_ops1, 'warm_up_s': wall_w,
+                         'step_runs_s': times, 'step_median_s': med,
+                         'step_ops_per_s': n_ops1 / med,
+                         'pool_wall_s': wall_p}
+    log('step config1 gpu: %d ops, warm-up %.4f s, runs %s, median %.4f s '
+        '(%.0f op/s), bit-equal to the CPU step, verified against a card '
+        'engine; one card pool %.4f s, patch equal to the card engine\'s on '
+        '%s' % (n_ops1, wall_w, ['%.4f' % x for x in times], med,
+                n_ops1 / med, wall_p, card))
+    report['phase_s'] = time.perf_counter() - t_phase
+    log('engine phase: %.1f s wall on %s' % (report['phase_s'], card))
+    log('engine: ' + json.dumps(report))
+    return report
+
+
 def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
     """A pipelined batch of 256 docs on the card (254 Text docs of config
     3 and two cut config-5 docs, whose register groups climb the
@@ -2272,6 +2593,36 @@ def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
     log('hostile staging: 256 docs in %d waves (%d tier rows), %d host '
         'arrays overwritten after upload, bytes equal to the CPU pool on %s'
         % (waves, tiers, n[0], card))
+    # the batched engine's seams (register, linearize, tier and dominance
+    # uploads) on the same batch, and the step's on 64 multichip docs
+    from automerge_tpu_torch.ops import list_rank
+    from automerge_tpu_torch.parallel import mesh, mesh_encode
+    from automerge_tpu_torch.parallel.engine import TPUDocPool
+    wl = mesh_encode.scaling_workload(64)
+    step_batch, meta = mesh_encode.encode_batch(wl)
+    n_iters = list_rank.ceil_log2(max(meta['max_arena'], 1)) + 1
+    n_pool = n[0]
+    R.upload = hostile
+    try:
+        trace.reset()
+        eng = TPUDocPool().apply_batch(batch)
+        step = mesh.single_step(step_batch, n_iters)
+        torch.cuda.synchronize()
+        tiers = sum(v for k, v in trace.metrics().items()
+                    if k.startswith('fallback.escalated.w'))
+    finally:
+        R.upload = orig
+    if eng != TPUDocPool(device='cpu').apply_batch(batch):
+        raise AssertionError('hostile staging: the card engine\'s patches '
+                             'differ from the CPU engine\'s')
+    step_equal('hostile staging step', step,
+               mesh.single_step(step_batch, n_iters, device='cpu'))
+    if n[0] - n_pool < len(mesh.BATCH_KEYS) or tiers == 0:
+        raise AssertionError('hostile staging: engine and step uploaded %d '
+                             'arrays, %d tier rows' % (n[0] - n_pool, tiers))
+    log('hostile staging: the card engine (256 docs, %d tier rows) and the '
+        'step (64 docs) with %d host arrays overwritten after upload, equal '
+        'to the CPU engine and step on %s' % (tiers, n[0] - n_pool, card))
 
 
 def main():
@@ -2315,7 +2666,7 @@ def run(torch):
     from automerge_tpu_torch import native, storage, trace, workloads
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
-    from automerge_tpu_torch.ops import members_kernel
+    from automerge_tpu_torch.ops import clock_kernel, members_kernel
     from automerge_tpu_torch.ops import registers as R
     from automerge_tpu_torch.ops import registers_kernel
 
@@ -2335,7 +2686,8 @@ def run(torch):
         ', '.join(os.path.basename(p) for p in kern_paths.values()), card))
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
-    captured = {'registers': [], 'dominance': [], 'members': []}
+    captured = {'registers': [], 'dominance': [], 'members': [],
+                'schedule': [], 'indexes': []}
     # captured calls by the thread that made them (the fleet phase tells
     # a read replica's pool from its upstream gateway's in one process)
     by_thread = {}
@@ -2359,11 +2711,14 @@ def run(torch):
     capture(registers_kernel, 'resolve_registers_cuda', 'registers')
     capture(dominance_kernel, 'dominance_grouped_cuda', 'dominance')
     capture(members_kernel, 'resolve_registers_members_cuda', 'members')
+    capture(clock_kernel, 'schedule_queue_cuda', 'schedule')
+    capture(dominance_kernel, 'dominance_indexes_cuda', 'indexes')
 
     K1, K2 = registers_kernel.LAUNCH_METRIC, dominance_kernel.LAUNCH_METRIC
     K3 = members_kernel.LAUNCH_METRIC
-    launches = {K1: 0, K2: 0, K3: 0}
-    by_path = {K1: {}, K2: {}, K3: {}}
+    KS, KI = clock_kernel.LAUNCH_METRIC, dominance_kernel.INDEXES_METRIC
+    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0}
+    by_path = {k: {} for k in launches}
 
     def drive(label, fn, need, oracle=0, waves=0):
         """Runs one main path with the counts zeroed just before and read
@@ -2382,7 +2737,7 @@ def run(torch):
         current['path'] = None
         snap = trace.snapshot()
         m = dict(snap['spans'], **snap['metrics'])
-        got = {k: int(m.get(k, 0)) for k in (K1, K2, K3)}
+        got = {k: int(m.get(k, 0)) for k in launches}
         for k in need:
             if got[k] == 0:
                 raise AssertionError('%s: kernel %s never launched' %
@@ -2574,7 +2929,7 @@ def run(torch):
     # -- phase 7: faults on the card -------------------------------------
     fault_phase(card, drive, K1, K2, K3, workloads)
 
-    # -- phase 8: the 100,000-doc cold start -----------------------------
+    # -- phase 8: the cold start (50,000 docs) ---------------------------
     coldstart_phase(torch, card, workloads, native, drive, K1, K2)
 
     # -- phase 9: one hot key beside a list, three widths ----------------
@@ -2632,6 +2987,11 @@ def run(torch):
     fleet_phase(card, workloads, drive, K1, K2, K3, batch3,
                 patch_slices(out_gpu), note_remote, capture_as, by_thread)
 
+    # -- phase 14: the batched engine and the single-device step (before
+    # the checks of phase 11, which hold their kernel calls too) ---------
+    engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
+                 batch3, out_gpu, pool3, packed)
+
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
@@ -2658,6 +3018,7 @@ def run(torch):
     keystroke = {}
     err1, err2 = kernel_cases(torch, np, card)
     err3 = member_cases(torch, np, card)
+    err_s, err_i = step_cases(torch, np, card)
 
     # at the main paths' own inputs (every call of the driven paths,
     # each held bit-equal): kernel, wrapper and plain times of the first
@@ -2806,10 +3167,55 @@ def run(torch):
         rows[name][1]['resident_launches_per_step'] = {
             size: by_path[k].get('resident %d gpu' % size, 0)
             / resident[size]['steps'] for size in resident}
+    # the schedule kernel and the whole-doc dominance route at the step's
+    # inputs (phase 14's lanes (c) and (d)): every call held bit-equal,
+    # the first call of each path timed beside its plain version
+    for key, name, check, size_of, shape_of, source, replaces, err in (
+            ('schedule', 'schedule', check_schedule,
+             lambda a: a[3].numel(),
+             lambda a: 'D=%d C=%d A=%d' % tuple(a[3].shape),
+             'automerge_tpu_torch/csrc/clock.cu',
+             'automerge_tpu/ops/clock.py:27 (XLA, no Pallas kernel)',
+             err_s),
+            ('indexes', 'dominance_indexes', check_indexes,
+             lambda a: a[0].numel() * a[3].shape[1],
+             lambda a: 'D=%d L=%d T=%d' % (tuple(a[0].shape)
+                                          + (a[3].shape[1],)),
+             'automerge_tpu_torch/csrc/dominance.cu (regrouped by '
+             'automerge_tpu_torch/ops/dominance_kernel.py)',
+             'automerge_tpu/ops/list_rank.py:195 (XLA, no Pallas kernel)',
+             err_i)):
+        metric = KS if key == 'schedule' else KI
+        seen = {}
+        best = None
+        for path, args, _kw in captured[key]:
+            timed = path not in seen
+            e, ms, plain_ms, bound, by = check(
+                torch, card, 'main path %s' % path, args, timed=timed)
+            err = max(err, e)
+            if not timed:
+                continue
+            seen[path] = {'shape': shape_of(args),
+                          'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+                          'bound_by': by}
+            if best is None or size_of(args) > best[0]:
+                best = (size_of(args), path, ms, plain_ms, bound, by,
+                        seen[path]['shape'])
+        if best is None:
+            raise AssertionError('%s: no main-path call was captured' % key)
+        _, path, ms, plain_ms, bound, by, shape = best
+        rows[name] = (0, {
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': launches[metric],
+            'launches_by_path': by_path[metric], 'timed_path': path,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+            'bound_by': by, 'library_ms': None, 'shape': shape,
+            'paths': seen, 'max_abs_err': err})
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
     rows['members'][1]['max_abs_err'] = err3
-    return [rows['registers'][1], rows['dominance'][1], rows['members'][1]]
+    return [rows[k][1] for k in ('registers', 'dominance', 'members',
+                                 'schedule', 'dominance_indexes')]
 
 
 if __name__ == '__main__':

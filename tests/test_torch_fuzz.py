@@ -5,9 +5,13 @@ tests/test_engine_differential.py runs here with the reference's own
 generators and assertions, with `PortTwin` in place of the JAX engine
 pool (`TPUDocPool`): a port CPU pool and a JAX NativeDocPool that get
 the same payload bytes at every delivery and must return the same bytes
-(apply, local change, save, load, missing deps, patches).  The lanes
-still check each pool against the scalar oracle, so every delivery is
-held three ways.  Both execution modes of the JAX pool face the
+(apply, local change, save, load, missing deps, patches), and the port's
+own engine (`automerge_tpu_torch.parallel.engine.TPUDocPool(device=
+'cpu')`) that gets the same changes and must return the same patches,
+checkpoint bytes and errors.  The lanes still check each pool against
+the scalar oracle, so every delivery is held four ways.  The engine's
+counters are kept apart from the pools' (`ENGINE_COUNTERS`), so the
+lanes' counter checks read the pools' alone.  Both execution modes of the JAX pool face the
 adversarial lanes, as in the reference (the port has one: its kernel
 path); where a reference lane asserts JAX telemetry, the port lane also
 asserts the port's own counters from `automerge_tpu_torch.trace`.
@@ -17,34 +21,82 @@ import msgpack
 import pytest
 
 from automerge_tpu.native import NativeDocPool as JaxPool
-from automerge_tpu_torch import trace
+from automerge_tpu_torch import telemetry, trace
 from automerge_tpu_torch.native import NativeDocPool, live_batch_handles
+from automerge_tpu_torch.parallel.engine import TPUDocPool
 from automerge_tpu_torch.ops import registers as R
 from automerge_tpu_torch.utils import doc_key
 from tests import test_adversarial_fuzz as adv
 from tests import test_engine_differential as diff
 
 
+#: the `fallback.*` counters the port engines of a lane added
+ENGINE_COUNTERS = {}
+
+
 class PortTwin:
     """A port CPU pool with a JAX NativeDocPool beside it: every call
     goes to both, with the same bytes, and their answers must be
-    equal."""
+    equal.  The port's engine gets the same call and must answer alike:
+    the same patches, bytes and query answers, or an error of the same
+    name and message."""
 
     def __init__(self):
         self.port = NativeDocPool(device='cpu')
         self.ref = JaxPool()
+        self.engine = TPUDocPool(device='cpu')
+
+    def _engine(self, name, *args):
+        """(result, None) or (None, exception) of the engine's call, its
+        counters moved from the shared table into ENGINE_COUNTERS."""
+        before = telemetry.metrics_snapshot()
+        try:
+            return getattr(self.engine, name)(*args), None
+        except Exception as e:
+            return None, e
+        finally:
+            after = telemetry.metrics_snapshot()
+            telemetry.metrics_reset()
+            for k, v in before.items():
+                telemetry.metric(k, v)
+            for k, v in after.items():
+                if k.startswith('fallback.') and v != before.get(k, 0):
+                    ENGINE_COUNTERS[k] = ENGINE_COUNTERS.get(k, 0) + \
+                        v - before.get(k, 0)
+
+    def _engine_equal(self, want, name, *args):
+        got, err = self._engine(name, *args)
+        assert err is None, (name, err)
+        assert got == want, 'engine %s' % name
+
+    def _engine_raises(self, exc, name, *args):
+        _, err = self._engine(name, *args)
+        assert err is not None, 'engine %s did not raise %r' % (name, exc)
+        assert (type(err).__name__, str(err)) == \
+            (type(exc).__name__, str(exc)), name
 
     def apply_batch(self, batch):
         payload = msgpack.packb({doc_key(d): chs for d, chs in batch.items()},
                                 use_bin_type=True)
-        got = self.port.apply_batch_bytes(payload)
+        try:
+            got = self.port.apply_batch_bytes(payload)
+        except Exception as e:
+            self._engine_raises(e, 'apply_batch', batch)
+            raise
         assert got == self.ref.apply_batch_bytes(payload)
         out = msgpack.unpackb(got, raw=False, strict_map_key=False)
-        return {d: out[doc_key(d)] for d in batch}
+        out = {d: out[doc_key(d)] for d in batch}
+        self._engine_equal(out, 'apply_batch', batch)
+        return out
 
     def _both(self, name, *args):
-        got = getattr(self.port, name)(*args)
+        try:
+            got = getattr(self.port, name)(*args)
+        except Exception as e:
+            self._engine_raises(e, name, *args)
+            raise
         assert got == getattr(self.ref, name)(*args), name
+        self._engine_equal(got, name, *args)
         return got
 
     def apply_local_change(self, doc_id, request):
@@ -70,8 +122,10 @@ def port_twin(monkeypatch):
     monkeypatch.setenv('AMTPU_RESIDENT', '0')
     monkeypatch.setenv('AMTPU_RESIDENT_CLK', '1')
     trace.reset()
+    ENGINE_COUNTERS.clear()
     yield
     assert live_batch_handles() == 0
+    assert ENGINE_COUNTERS.get('fallback.oracle', 0) == 0, ENGINE_COUNTERS
 
 
 @pytest.fixture(params=['default', 'kernel'])

@@ -19,7 +19,8 @@ FILES = sorted(glob.glob(os.path.join(ROOT, 'automerge_tpu_torch', '**',
                                       '*.py'), recursive=True)) + \
     [os.path.join(ROOT, 'chip_smoke.py'),
      os.path.join(ROOT, 'tests', 'torch_member_cases.py'),
-     os.path.join(ROOT, 'tests', 'torch_serving_cases.py')]
+     os.path.join(ROOT, 'tests', 'torch_serving_cases.py'),
+     os.path.join(ROOT, 'tests', 'torch_step_cases.py')]
 
 
 def _forbidden(name):
