@@ -36,6 +36,7 @@ import time
 import numpy as np
 
 from .. import telemetry
+from ..backend.op_set import copy_change
 from ..errors import AutomergeError, RangeError
 from ..ops import list_rank, registers as register_ops
 from ..ops.dominance_kernel import dominance_grouped_auto
@@ -49,17 +50,6 @@ _LIST_TYPES = ('list', 'text')
 #: the register outputs the engine reads back
 _REG_KEYS = ('winner', 'conflicts', 'alive_after', 'visible_before',
              'overflow')
-
-
-def copy_change(change):
-    """Defensive two-level copy of a change: the engine stores changes in
-    its state and hands them back out, so neither side may alias the
-    other's mutable dicts.  Op values are primitives or ID strings, so
-    depth two is sufficient."""
-    c = dict(change)
-    c['deps'] = dict(change.get('deps', {}))
-    c['ops'] = [dict(op) for op in change.get('ops', ())]
-    return c
 
 
 def _bucket(n, floor=16):

@@ -1,6 +1,22 @@
-"""Shared constants and msgpack map and array headers (read and write)."""
+"""Shared constants, the clock and object predicates, and msgpack map
+and array headers (read and write).  `cow` holds the oracle backend's
+copy-on-write containers and `uuid` the swappable id factory."""
 
 ROOT_ID = '00000000-0000-0000-0000-000000000000'
+
+
+def is_object(value):
+    """True for values that map to Automerge objects (dict/list/Text/Table)."""
+    return isinstance(value, (dict, list)) or hasattr(value, '_am_object')
+
+
+def less_or_equal(clock1, clock2):
+    """True if every component of vector clock `clock1` is <= the matching
+    component of `clock2` (reference: `src/common.js:14-18`)."""
+    for key in set(clock1) | set(clock2):
+        if clock1.get(key, 0) > clock2.get(key, 0):
+            return False
+    return True
 
 
 def doc_key(doc_id):
@@ -46,3 +62,8 @@ def array_header(n):
     if n <= 0xffff:
         return b'\xdc' + n.to_bytes(2, 'big')
     return b'\xdd' + n.to_bytes(4, 'big')
+
+
+# imported last: `uuid` names the factory function here, as in the JAX
+# package (`utils.uuid` the module stays reachable through sys.modules)
+from .uuid import reset, set_factory, uuid  # noqa: E402,F401

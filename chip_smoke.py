@@ -143,7 +143,11 @@ port's C++ host runtime and its four CUDA kernels from this checkout
      concurrent writers (its own pool launches K1 and K2), closes a
      forced gap of 5 changes by resync, answers a write with ReadOnly,
      and a second replica bootstraps from the gateway's write-through
-     store, all equal to the upstream and to a CPU gateway.
+     store, all equal to the upstream and to a CPU gateway; then
+     `tools/readpath_check.py` arm 1 on the card gateway: a change-mode
+     client with a full port backend and a patch-mode thin client follow
+     20 writer flushes of one doc and both end equal to its `get_patch`
+     (their apply CPU is printed, not asserted).
   14. runs the batched Python engine and the single-device resolver
      step (after phase 13, before the checks of phase 11, which hold
      their kernel calls too): (a) `TPUDocPool(device='cuda')` applies
@@ -162,6 +166,23 @@ port's C++ host runtime and its four CUDA kernels from this checkout
      one card `NativeDocPool`, its patch equal to the card engine's.
      Phase 3's hostile-staging lane also runs the card engine and the
      step with every uploaded host array overwritten.
+  15. drives port frontends (`import automerge_tpu_torch as am`) with
+     the `backend=tpu` adapter's Backend surface as their immediate
+     backend (after phase 14, before the checks of phase 11, which hold
+     their kernel calls too; `tests/torch_frontend_cases.py`): (a) the
+     reference-shaped session (changes with a Text and a Table,
+     applyChanges, merge, undo and redo, getPatch, save then load)
+     against a `python -m automerge_tpu_torch.sidecar.server --device
+     cuda` subprocess on the adapter's stdio framing; (b) BASELINE config
+     1 (10,000 characters in 200 changes of 50, actors a0 and a1 taking
+     turns, each change applied locally by the writer's replica and
+     remotely by the other's) and (c) three rounds of two frontends
+     assigning the same keys and list elements, then 40 writers on one
+     key, both through an in-process card `SidecarBackend.handle`: every
+     request, patch and materialized document equal, as JSON, to the
+     same lane on the port's scalar oracle; (b) and (c) must launch K1
+     and K2, (c) K3 too; (b) logs its wall and the median and p99 round
+     trip of one change.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -1674,8 +1695,9 @@ FLEET_REPLICAS = 3
 ROUTE_DOCS, ROUTE_WRITERS, ROUTE_OPS, ROUTE_OPS2 = 18, 6, 160, 120
 #: lane (c), `tools/failover_check.py`'s shape
 FAILOVER_DOCS, FAILOVER_WRITERS, FAILOVER_OPS = 15, 5, (120, 150)
-#: lane (d), `tools/readpath_check.py` arm 2: churn flushes, forced gap
-READ_CHURN, READ_GAP = 15, 5
+#: lane (d), `tools/readpath_check.py` arm 2: churn flushes, forced gap;
+#: then arm 1's writer flushes
+READ_CHURN, READ_GAP, READ_AB_ROUNDS = 15, 5, 20
 FLEET_COUNTERS = ('launch.registers', 'launch.dominance', 'launch.members')
 
 
@@ -2257,8 +2279,10 @@ def _fleet_failover(ctx, work):
 
 def _fleet_read(ctx, work):
     """Lane (d): two card read replicas following one card gateway."""
+    import torch_frontend_cases as FC
     import torch_serving_cases as S
 
+    import automerge_tpu_torch as am
     from automerge_tpu_torch import telemetry
     from automerge_tpu_torch.readview.replica import ReadReplica
 
@@ -2313,6 +2337,12 @@ def _fleet_read(ctx, work):
                                  if t.startswith('amtpu-replica'))
                           for k, v in threads.items()}
             stale = rep.healthz_section()
+            # readpath arm 1: a change-mode client with a full port
+            # backend and a patch-mode thin client on the card gateway
+            t_ab = time.perf_counter()
+            end_ab, ab = FC.readpath_arm(am, 'd/up.sock',
+                                         READ_AB_ROUNDS)
+            wall_ab = time.perf_counter() - t_ab
             rep.stop()
             rep = None
             rep2 = ReadReplica('d/up.sock', 'd/read2.sock',
@@ -2355,6 +2385,15 @@ def _fleet_read(ctx, work):
                       by_replica.get('registers', 0),
                       by_replica.get('dominance', 0), n_gap, boot,
                       stale, card))
+    log('fleet d readpath arm 1: %d writer flushes of one doc on the card '
+        'gateway; the change-mode client (full port backend) and the '
+        'patch-mode thin client both end equal to get_patch (%d keys) in '
+        '%.3f s; thin-client apply CPU %.3f ms (patch) against %.3f ms '
+        '(change), wire %d B against %d B (printed, not asserted; host '
+        'CPU beside %s)' % (
+            READ_AB_ROUNDS, len(end_ab), wall_ab, ab['patch_cpu_s'] * 1e3,
+            ab['change_cpu_s'] * 1e3, ab['patch_wire_bytes'],
+            ab['change_wire_bytes'], card))
 
 
 def _read_ref(path, doc, churn):
@@ -2383,6 +2422,145 @@ def patch_slices(buf):
         u.skip()
         out[key] = buf[start:u.tell()]
     return out
+
+
+#: phase 15: lane (b) is BASELINE config 1 (10,000 characters in changes
+#: of 50); lane (c) has this many writers on one hot key (past the
+#: sliding window, as `hot_key_batch(40)`) after this many rounds of two
+#: frontends
+FRONTEND_CHARS, FRONTEND_PER_CHANGE = 10000, 50
+FRONTEND_WRITERS, FRONTEND_ROUNDS = 40, 3
+#: lane (b)'s calls are held in phase 11 with the largest first, so that
+#: its timed call is the one on the 10,000-element object
+LARGEST_FIRST = 'frontend b typing gpu'
+
+
+def _quantile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _stdio_counts(conn):
+    """A stdio server's kernel launches and oracle rows (`metrics`)."""
+    import torch_frontend_cases as FC
+    body = FC.metrics_body(conn)
+    out = {k: _prom_counter(body, k) for k in FLEET_COUNTERS}
+    out['fallback.oracle'] = _prom_value(body, 'amtpu_fallback_total',
+                                         'reason', 'oracle')
+    return out
+
+
+def frontend_phase(card, drive, K1, K2, K3, note_remote):
+    """Phase 15: port frontends with the `backend=tpu` adapter's Backend
+    surface (`tests/torch_frontend_cases.PortMirror`) as their immediate
+    backend, on the card.  (a) the reference-shaped session against a
+    `python -m automerge_tpu_torch.sidecar.server --device cuda` stdio
+    subprocess; (b) config 1 typed by two frontends and (c) concurrent
+    assignments, 40 writers on one key, through an in-process card
+    `SidecarBackend.handle`.  Every lane's transcript (each request,
+    patch and materialized document) must equal, as JSON, the same lane
+    with the port's scalar oracle as the immediate backend; lanes (b) and
+    (c) must launch K1 and K2 (c: K3 too)."""
+    import torch_frontend_cases as FC
+
+    import automerge_tpu_torch as am
+    from automerge_tpu_torch import errors, native
+    from automerge_tpu_torch.sidecar.server import SidecarBackend
+
+    oracle = FC.OracleSurface(am)
+    t_phase = time.perf_counter()
+
+    # -- (a) the reference-shaped session, a server subprocess ----------
+    t0 = time.perf_counter()
+    conn = FC.StdioServer('cuda')
+    try:
+        FC.request(conn, errors, 'ping', {})
+        log('frontend a: stdio server subprocess up in %.1f s on %s'
+            % (time.perf_counter() - t0, card))
+        before = _stdio_counts(conn)
+        got_a, wall_a, _ = drive('frontend a session server',
+                                 lambda: FC.session_lane(
+                                     am, FC.PortMirror(conn, errors)),
+                                 need=())
+        counts_a = _deltas(before, _stdio_counts(conn))
+    finally:
+        conn.close()
+    if conn.proc.returncode != 0:
+        raise AssertionError('frontend a: the server exited %s'
+                             % conn.proc.returncode)
+    if got_a != FC.session_lane(am, oracle):
+        raise AssertionError('frontend a: the card server\'s session '
+                             'differs from the oracle\'s')
+    if counts_a['fallback.oracle']:
+        raise AssertionError('frontend a: %d oracle rows' %
+                             counts_a['fallback.oracle'])
+    note_remote('frontend a session server', counts_a)
+    log('frontend a: the session (init, 9 changes with a Text and a Table, '
+        'applyChanges, merge, undo and redo, getPatch, save then load) in '
+        '%.3f s, %d transcript records equal to the oracle\'s; the server '
+        'launched K1 %d, K2 %d, K3 %d times on %s' % (
+            wall_a, len(json.loads(got_a)), counts_a['launch.registers'],
+            counts_a['launch.dominance'], counts_a['launch.members'], card))
+
+    # -- (b) config 1 through two frontends, in process ------------------
+    backend = SidecarBackend(device='cuda')
+    inproc = FC.InProcess(backend)
+    mirror = FC.PortMirror(inproc, errors)
+    body0 = backend.handle({'cmd': 'metrics'})['result']['body']
+    (got_b, texts, rtt), wall_b, m_b = drive(
+        LARGEST_FIRST, lambda: FC.typing_lane(
+            am, mirror, FRONTEND_CHARS, FRONTEND_PER_CHANGE),
+        need=(K1, K2))
+    body1 = backend.handle({'cmd': 'metrics'})['result']['body']
+    want_b, want_texts, _ = FC.typing_lane(am, oracle, FRONTEND_CHARS,
+                                           FRONTEND_PER_CHANGE)
+    if got_b != want_b or texts != want_texts or texts[0] != texts[1] or \
+            len(texts[0]) != FRONTEND_CHARS:
+        raise AssertionError('frontend b: the card transcript or texts '
+                             'differ from the oracle\'s (%d, %d chars)'
+                             % tuple(len(t) for t in texts))
+    server_b = {k: _prom_counter(body1, k) - _prom_counter(body0, k)
+                for k in FLEET_COUNTERS}
+    if server_b['launch.registers'] != m_b.get(K1, 0) or \
+            server_b['launch.dominance'] != m_b.get(K2, 0):
+        raise AssertionError('frontend b: the server\'s counters %r '
+                             'disagree with the trace' % server_b)
+    slowest = sorted(range(len(rtt)), key=lambda i: -rtt[i])[:3]
+    log('frontend b: %d characters in %d changes of %d by actors a0 and '
+        'a1 in %.3f s wall, %.3f s of it in the sidecar\'s handle (the '
+        'pool; the rest frontend Python and JSON); round trip of one '
+        'change (local change, then the other replica\'s remote apply): '
+        'median %.3f ms, p99 %.3f ms, slowest %s; %d transcript records; '
+        'the server counted %s; both texts equal, transcript equal to the '
+        'oracle\'s on %s' % (
+            FRONTEND_CHARS, len(rtt), FRONTEND_PER_CHANGE, wall_b,
+            inproc.seconds, _quantile(rtt, 0.5) * 1e3,
+            _quantile(rtt, 0.99) * 1e3,
+            ', '.join('#%d %.3f ms' % (i, rtt[i] * 1e3) for i in slowest),
+            len(json.loads(got_b)),
+            {k: int(v) for k, v in server_b.items()}, card))
+
+    # -- (c) concurrent assignments, 40 writers on one key --------------
+    got_c, wall_c, m_c = drive('frontend c conflicts gpu', lambda: FC
+                               .conflict_lane(am, mirror, FRONTEND_WRITERS,
+                                              FRONTEND_ROUNDS),
+                               need=(K1, K2, K3))
+    if got_c != FC.conflict_lane(am, oracle, FRONTEND_WRITERS,
+                                 FRONTEND_ROUNDS):
+        raise AssertionError('frontend c: the card transcript differs from '
+                             'the oracle\'s')
+    tiers = {k: v for k, v in m_c.items()
+             if k.startswith('fallback.escalated.w')}
+    log('frontend c: %d rounds of two frontends on the same keys and list '
+        'elements, then %d writers on one key, in %.3f s; conflicts and '
+        'transcript equal to the oracle\'s; launches K1 %d, K2 %d, K3 %d, '
+        'tiers %s on %s' % (FRONTEND_ROUNDS, FRONTEND_WRITERS, wall_c,
+                            m_c.get(K1, 0), m_c.get(K2, 0), m_c.get(K3, 0),
+                            tiers, card))
+    if native.live_batch_handles():
+        raise AssertionError('frontend: live batch handles left')
+    log('frontend phase: %.1f s wall on %s' % (time.perf_counter() - t_phase,
+                                                card))
 
 
 #: the batched engine's stage spans (phase 14 lane (a))
@@ -2992,6 +3170,10 @@ def run(torch):
     engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
                  batch3, out_gpu, pool3, packed)
 
+    # -- phase 15: port frontends over the card (before the checks of
+    # phase 11, which hold their kernel calls too) ----------------------
+    frontend_phase(card, drive, K1, K2, K3, note_remote)
+
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
@@ -3014,6 +3196,10 @@ def run(torch):
             if calls[-1] is not big:
                 kept.append((path + ' keystroke',) + tuple(calls[-1][1:]))
         captured[key] = kept
+        # a path held largest call first has that call timed
+        calls = [c for c in captured[key] if c[0] == LARGEST_FIRST]
+        rest = [c for c in captured[key] if c[0] != LARGEST_FIRST]
+        captured[key] = sorted(calls, key=size_of, reverse=True) + rest
     rows = {}
     keystroke = {}
     err1, err2 = kernel_cases(torch, np, card)

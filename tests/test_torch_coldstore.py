@@ -38,9 +38,9 @@ N_DOCS = 24
 
 @pytest.fixture(autouse=True)
 def _reset(monkeypatch):
-    # the JAX pool's resident knobs latch at its first batch: keep the
-    # value the other port test files set
-    monkeypatch.setenv('AMTPU_RESIDENT', '0')
+    # the JAX pool's resident knobs latch at its first batch: leave
+    # AMTPU_RESIDENT unset (the JAX pool declines the resident route on
+    # the CPU backend), so a later test in this process sees the default
     monkeypatch.setenv('AMTPU_RESIDENT_CLK', '1')
     trace.reset()
     faults.disarm()

@@ -49,7 +49,7 @@ NB = len(QUEUE_WAIT_BUCKETS) + 1
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                  ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1'),
+                  ('AMTPU_RESIDENT_CLK', '1'),
                   ('AMTPU_FLUSH_DEADLINE_MS', '5'))
 
 

@@ -119,7 +119,6 @@ class PortTwin:
 def port_twin(monkeypatch):
     monkeypatch.setattr(adv, 'TPUDocPool', PortTwin)
     monkeypatch.setattr(diff, 'TPUDocPool', PortTwin)
-    monkeypatch.setenv('AMTPU_RESIDENT', '0')
     monkeypatch.setenv('AMTPU_RESIDENT_CLK', '1')
     trace.reset()
     ENGINE_COUNTERS.clear()

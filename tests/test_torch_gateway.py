@@ -38,7 +38,7 @@ from torch_serving_cases import (RawConn, concurrent_stream,
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                  ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1'))
+                  ('AMTPU_RESIDENT_CLK', '1'))
 
 N_CONNS = 32
 ROUNDS = 6

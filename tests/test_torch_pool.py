@@ -41,7 +41,7 @@ with open(CORPUS) as f:
 def kernel_path_env(monkeypatch):
     for k, v in (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                  ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                 ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1')):
+                 ('AMTPU_RESIDENT_CLK', '1')):
         monkeypatch.setenv(k, v)
     trace.reset()
     jax_trace.metrics_reset()

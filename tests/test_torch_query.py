@@ -50,7 +50,7 @@ KNOBS = {'STORAGE_FORMAT': 'AMTPU_STORAGE_FORMAT',
 def kernel_path_env(monkeypatch):
     for k, v in (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                  ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                 ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1')):
+                 ('AMTPU_RESIDENT_CLK', '1')):
         monkeypatch.setenv(k, v)
     for k in KNOBS.values():
         monkeypatch.delenv(k, raising=False)

@@ -32,7 +32,7 @@ from torch_serving_cases import RawConn, set_change
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                  ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1'),
+                  ('AMTPU_RESIDENT_CLK', '1'),
                   ('AMTPU_FLUSH_DEADLINE_MS', '5'))
 DOCS = ('doc-a', 'doc-b')
 

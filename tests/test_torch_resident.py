@@ -5,8 +5,8 @@ tolerance is exact equality.
 
 C++ decides which batches qualify (one list object of at least
 AMTPU_RESIDENT_MIN elements) from statics that latch at each library
-copy's first batch, and other port test files pin AMTPU_RESIDENT=0 in
-the same worker process.  So the pool scenario runs once, in a
+copy's first batch, and other test files leave those knobs at their
+defaults in the same worker process.  So the pool scenario runs once, in a
 subprocess with AMTPU_RESIDENT=1 and AMTPU_RESIDENT_MIN=16: a 600-
 character text and `workloads.keystroke_edits` go through a JAX pool, a
 port pool with `RESIDENT = True` and a port pool with the default

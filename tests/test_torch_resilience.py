@@ -36,7 +36,7 @@ def kernel_path(monkeypatch):
     depend on it)."""
     for k, v in (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                  ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                 ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1'),
+                 ('AMTPU_RESIDENT_CLK', '1'),
                  ('AMTPU_RETRY_BACKOFF_S', '0')):
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(resilience, 'RETRY_BACKOFF_S', 0.0)

@@ -39,7 +39,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the JAX pool's kernel path, as the other twin tests set it
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                  ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1'))
+                  ('AMTPU_RESIDENT_CLK', '1'))
 
 TEXT_CHANGE = {'actor': 'b', 'seq': 1, 'deps': {'a': 1}, 'ops': [
     {'action': 'makeText', 'obj': 't1'},

@@ -40,7 +40,7 @@ from torch_serving_cases import (RawConn, concurrent_stream,
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),
-                  ('AMTPU_RESIDENT', '0'), ('AMTPU_RESIDENT_CLK', '1'),
+                  ('AMTPU_RESIDENT_CLK', '1'),
                   ('AMTPU_RETRY_BACKOFF_S', '0'))
 POISON = 'd3'
 
