@@ -14,23 +14,40 @@
 // any other ready change takes the next application position and moves
 // the clock at once, so change i + 1 sees change i in the same pass.
 //
-// Design: one block per doc.  The doc's clock sits in shared memory and
-// the changes are walked one by one within each pass, which reproduces
-// the scan's carry exactly.  The block's threads split the readiness
-// test across the A actors (each ANDs its strided share of
-// dep_row <= clock, then a block-wide vote); thread 0 then updates the
-// clock and the order.  For A <= 32 the block is one warp and the vote
-// is a warp vote with no block barrier; for larger A it is a block of up
-// to 1024 threads, each covering A / blockDim actors, so the kernel takes
-// any A whose clock fits shared memory (A <= 58,112).  A change that is
-// not a candidate (padding, invalid, already ordered) is skipped by every
-// thread alike without a vote.
+// Design: one warp per doc, several docs to a block.  Each pass walks
+// the queue a window of 32 changes at a time, one change per lane.  Each
+// candidate lane counts its unmet actors (entries above the clock) once,
+// against the clock at the window's start, and knows whether its seq is
+// already covered (a duplicate).  Then
+//   ready = ballot(candidate && unmet == 0)
+// and the lowest ready lane is the next change the sequential walk
+// applies: every candidate below it was tested against this same clock
+// and was not ready.  Its actor, seq and duplicate bit go to every lane
+// in three independent shuffles.  Applying it moves at most one clock
+// entry (actor a to seq s, from s - 1), so a lane above it only drops
+// its unmet count by one when its wanted entry for a is exactly s; lanes
+// at or below it are not revisited in this pass.  One applied change
+// thus costs a ballot, the shuffles and one shared-memory read, not a
+// chain of global loads and block barriers.  The counts are recomputed
+// at each window's visit (cheap at the step's A of 2-4; keeping them
+// across windows would cost a scan of the queue's column per applied
+// change).
 //
-// Bound: the walk is sequential within a doc (two barriers per candidate
-// change and pass), so the time is latency: C x passes barrier rounds
-// per doc, with docs running in parallel across the SMs.  The bytes are
-// the dependency rows (C x A words per pass, read from L2 after the
-// first) and the order; the arithmetic is one compare per actor.
+// Two forms.  Resident (A <= 32 and the doc's queue fits shared memory,
+// as on the step's inputs): the queue (actor, seq, order and the
+// dependency rows, odd row stride) comes into shared memory once, with
+// coalesced copies, and the passes never touch device memory; lane b
+// holds the clock entry b in a register and each lane counts its own
+// row.  Streamed (any other A up to 58,112): the clock sits in shared
+// memory, each window's columns are read from device memory (L2 after
+// the first pass), and the warp counts each candidate's row together
+// (lanes stride the row, one warp reduction).
+//
+// Bound: the walk is sequential within a doc (one ballot round per
+// applied change), so the time is latency: a few dozen cycles per
+// applied change and per window visit, docs running in parallel as
+// warps.  The bytes are the queue read once (resident) and the order and
+// clock written once; the arithmetic is one compare per actor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,99 +56,253 @@ namespace {
 
 constexpr int32_t kNotApplied = 2147483647;
 constexpr int32_t kDuplicate = -2;
+constexpr unsigned kFull = 0xffffffffu;
+//: docs (warps) per block at most
+constexpr int kWarps = 8;
+//: dynamic shared memory a block may ask for (bytes): the card's 227 KB
+constexpr size_t kSmemMax = 227 * 1024;
 
-template <bool kWarp>
-__device__ __forceinline__ void block_sync() {
-  if (kWarp) __syncwarp(); else __syncthreads();
+// Row stride of the resident dependency rows (odd: conflict-free).
+__host__ __device__ inline int64_t row_stride(int64_t A) { return A | 1; }
+
+// Shared words of one warp: the resident queue (actor, seq, order and
+// the dependency rows) or the streamed form's clock.
+__host__ __device__ inline int64_t warp_words(bool resident, int64_t C,
+                                              int64_t A) {
+  return resident ? C * (3 + row_stride(A)) : A;
 }
 
-template <bool kWarp>
-__device__ __forceinline__ bool block_all(bool v) {
-  if (kWarp) return __all_sync(0xffffffffu, v);
-  return __syncthreads_and(v) != 0;
+//: the most distinct actors a window's candidates may have for the
+//: one-round resolution to be tried (a warp scan each)
+constexpr int kSpecActors = 8;
+
+// One round for a whole window (resident form): supposes every candidate
+// applies in lane order and checks it.  For each actor a candidate
+// authors, a warp max-scan gives every lane the clock entry it would
+// see at its turn (the window-start entry, or the highest seq of that
+// actor among the candidates below it); a lane's unmet count then drops
+// by the entries those prefix clocks cover.  A lane's readiness depends
+// only on the lanes below it, so if every candidate is ready under the
+// prefix clocks of "all apply", that is the sequential walk's outcome:
+// the candidates take positions in lane order (duplicates, whose seq
+// the prefix clock covers, take -2) and the clock takes the prefix
+// maxima.  Returns false, changing nothing, when some candidate would
+// not be ready (or too many actors); the walk then goes change by
+// change.  A queue delivered in causal order resolves a window a round.
+__device__ __forceinline__ bool resolve_whole_window(
+    bool cand, int32_t a, int32_t s, int32_t unmet, const int32_t* my_row,
+    int32_t& clk, int32_t& counter, int32_t& my_ord) {
+  const int lane = threadIdx.x & 31;
+  const unsigned authors = __reduce_or_sync(kFull, cand ? 1u << a : 0u);
+  if (__popc(authors) > kSpecActors) return false;
+  int32_t left = unmet;   // unmet entries under the prefix clocks
+  int32_t own_pre = 0;    // the own actor's entry at the lane's turn
+  int32_t new_clk = clk;  // lane b: clock entry b after the window
+  for (unsigned m = authors; m; m &= m - 1) {
+    const int b = __ffs(m) - 1;
+    const int32_t cb = __shfl_sync(kFull, clk, b);
+    int32_t v = cand && a == b ? s : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t u = __shfl_up_sync(kFull, v, o);
+      if (lane >= o) v = max(v, u);
+    }
+    const int32_t top = __shfl_sync(kFull, v, 31);
+    int32_t below = __shfl_up_sync(kFull, v, 1);
+    const int32_t pre = max(cb, lane ? below : 0);
+    const int32_t want = a == b ? s - 1 : my_row[b];
+    left -= (cand && want > cb && want <= pre) ? 1 : 0;
+    own_pre = a == b ? pre : own_pre;
+    new_clk = lane == b ? max(clk, top) : new_clk;
+  }
+  if (!__all_sync(kFull, !cand || left == 0)) return false;
+  const bool dup = s <= own_pre;
+  const unsigned fresh = __ballot_sync(kFull, cand && !dup);
+  if (cand)
+    my_ord = dup ? kDuplicate
+                 : counter + __popc(fresh & ((1u << lane) - 1u));
+  counter += __popc(fresh);
+  clk = new_clk;
+  return true;
 }
 
-template <bool kWarp>
+template <bool kResident>
 __global__ void schedule_kernel(const int32_t* __restrict__ clock0,
                                 const int32_t* __restrict__ actor,
                                 const int32_t* __restrict__ seq,
                                 const int32_t* __restrict__ deps,
                                 const bool* __restrict__ valid,
                                 int32_t* __restrict__ order,
-                                int32_t* __restrict__ clock_out,
+                                int32_t* __restrict__ clock_out, int64_t D,
                                 int64_t C, int64_t A) {
-  extern __shared__ int32_t clk[];
-  __shared__ int progress;
-  const int64_t d = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int32_t* act = actor + d * C;
-  const int32_t* sq = seq + d * C;
-  const bool* val = valid + d * C;
+  extern __shared__ int32_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t d = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+                    warp;
+  if (d >= D) return;  // the kernel has no block barrier
+  const int64_t rs = row_stride(A);
+  int32_t* sm = smem + warp * warp_words(kResident, C, A);
+  // resident: the doc's queue, candidates' actors (-1: never a candidate)
+  int32_t* s_act = sm;
+  int32_t* s_seq = sm + C;
+  int32_t* s_ord = sm + 2 * C;
+  int32_t* s_dep = sm + 3 * C;
   const int32_t* dep = deps + d * C * A;
-  int32_t* ord = order + d * C;
+  int32_t* ord = kResident ? s_ord : order + d * C;
 
-  for (int64_t a = tid; a < A; a += nt) clk[a] = clock0[d * A + a];
-  for (int64_t i = tid; i < C; i += nt) ord[i] = kNotApplied;
-  int32_t counter = 0;  // thread 0's
-  __syncthreads();
-
-  while (true) {
-    if (tid == 0) progress = 0;
-    block_sync<kWarp>();
-    for (int64_t i = 0; i < C; ++i) {
-      const int32_t a = act[i];
-      // uniform across the block: every thread reads the same words, and
-      // ord[i] was last written by thread 0 before a barrier
-      if (!val[i] || a < 0 || a >= A || ord[i] != kNotApplied) continue;
-      const int32_t s = sq[i];
-      const int32_t* row = dep + i * A;
-      bool mine = true;
-      for (int64_t b = tid; b < A; b += nt) {
-        const int32_t want = (b == a) ? s - 1 : row[b];
-        mine &= want <= clk[b];
-      }
-      if (block_all<kWarp>(mine)) {
-        if (tid == 0) {
-          if (s <= clk[a]) {
-            ord[i] = kDuplicate;
-          } else {
-            clk[a] = s;
-            ord[i] = counter++;
-          }
-          progress = 1;
-        }
-        block_sync<kWarp>();
-      }
+  // the clock: lane b's register (resident, A <= 32) or shared memory
+  int32_t clk = 0;
+  if (kResident) {
+    if (lane < A) clk = clock0[d * A + lane];
+    for (int64_t i = lane; i < C; i += 32) {
+      const int32_t a = actor[d * C + i];
+      s_act[i] = valid[d * C + i] && a >= 0 && a < A ? a : -1;
+      s_seq[i] = seq[d * C + i];
     }
-    block_sync<kWarp>();
-    const int p = progress;
-    block_sync<kWarp>();
-    if (!p) break;
+    for (int64_t k = lane; k < C * A; k += 32)
+      s_dep[(k / A) * rs + k % A] = dep[k];
+  } else {
+    for (int64_t a = lane; a < A; a += 32) sm[a] = clock0[d * A + a];
   }
-  for (int64_t a = tid; a < A; a += nt) clock_out[d * A + a] = clk[a];
+  for (int64_t i = lane; i < C; i += 32) ord[i] = kNotApplied;
+  __syncwarp();
+
+  int32_t counter = 0;  // uniform across the warp
+  bool progress = true;
+  while (progress) {
+    progress = false;
+    for (int64_t w0 = 0; w0 < C; w0 += 32) {
+      const int64_t i = w0 + lane;
+      const bool in = i < C;
+      int32_t a = -1, s = 0;
+      if (in) {
+        if (kResident) {
+          a = s_act[i];
+          s = s_seq[i];
+        } else {
+          a = actor[d * C + i];
+          s = seq[d * C + i];
+          if (!valid[d * C + i] || a >= A) a = -1;
+        }
+      }
+      // each lane reads back only the order entries it wrote itself
+      bool cand = a >= 0 && ord[i] == kNotApplied;
+      const unsigned cands = __ballot_sync(kFull, cand);
+      if (cands == 0) continue;
+      // the lane's dependency row in shared memory (resident form)
+      const int32_t* my_row = s_dep + (in ? i : 0) * rs;
+      int32_t unmet = 0;
+      if (kResident) {
+        for (int b = 0; b < A; ++b) {
+          const int32_t cb = __shfl_sync(kFull, clk, b);
+          const int32_t want = b == a ? s - 1 : my_row[b];
+          unmet += (cand && want > cb) ? 1 : 0;
+        }
+      } else {
+        for (unsigned m = cands; m; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          const int32_t aj = __shfl_sync(kFull, a, j);
+          const int32_t sj = __shfl_sync(kFull, s, j);
+          const int32_t* row = dep + (w0 + j) * A;
+          unsigned n = 0;
+          for (int64_t b = lane; b < A; b += 32) {
+            const int32_t want = b == aj ? sj - 1 : row[b];
+            n += want > sm[b] ? 1u : 0u;
+          }
+          n = __reduce_add_sync(kFull, n);
+          if (lane == j) unmet = static_cast<int32_t>(n);
+        }
+      }
+      // the clock entry of the lane's own actor: whether it is a duplicate
+      int32_t own;
+      if (kResident)
+        own = __shfl_sync(kFull, clk, a >= 0 ? a : 0);
+      else
+        own = a >= 0 ? sm[a] : 0;
+      bool dup_now = s <= own;
+      int32_t my_ord = kNotApplied;
+      if (kResident && resolve_whole_window(cand, a, s, unmet, my_row, clk,
+                                            counter, my_ord)) {
+        // every candidate applies, in lane order (a causal run)
+        progress = true;
+        if (my_ord != kNotApplied) ord[i] = my_ord;
+        continue;
+      }
+      // the sequential walk over the window, one applied change a round,
+      // branch-free but for the loop's exit (the rounds are a dependent
+      // chain: ballot, shuffles, one shared read)
+      unsigned above = kFull;  // lanes not yet passed in this pass
+      while (true) {
+        const unsigned ready =
+            __ballot_sync(kFull, cand && unmet == 0) & above;
+        if (ready == 0) break;
+        const int r = __ffs(ready) - 1;
+        const int32_t ar = __shfl_sync(kFull, a, r);
+        const int32_t sr = __shfl_sync(kFull, s, r);
+        const bool dup = __shfl_sync(kFull, dup_now, r);
+        const bool me = lane == r;
+        my_ord = me ? (dup ? kDuplicate : counter) : my_ord;
+        cand = cand && !me;
+        progress = true;
+        if (!dup) {
+          // clock[ar] moves from sr - 1 to sr
+          ++counter;
+          if (kResident) {
+            clk = lane == ar ? sr : clk;
+          } else {
+            __syncwarp();
+            if (lane == 0) sm[ar] = sr;
+            __syncwarp();
+          }
+          const int32_t row_ar = kResident ? my_row[ar]
+                                           : (cand ? dep[i * A + ar] : 0);
+          const int32_t want = a == ar ? s - 1 : row_ar;
+          unmet -= (cand && lane > r && unmet > 0 && want == sr) ? 1 : 0;
+          dup_now = a == ar ? s <= sr : dup_now;
+        }
+        above = r == 31 ? 0u : (kFull << (r + 1));
+      }
+      if (my_ord != kNotApplied) ord[i] = my_ord;
+    }
+  }
+  __syncwarp();
+  if (kResident) {
+    for (int64_t i = lane; i < C; i += 32) order[d * C + i] = s_ord[i];
+    if (lane < A) clock_out[d * A + lane] = clk;
+  } else {
+    for (int64_t a = lane; a < A; a += 32) clock_out[d * A + a] = sm[a];
+  }
 }
 
-template <bool kWarp>
+template <bool kResident>
 int launch(const int32_t* clock0, const int32_t* actor, const int32_t* seq,
            const int32_t* deps, const bool* valid, int32_t* order,
-           int32_t* clock_out, int64_t D, int64_t C, int64_t A,
+           int32_t* clock_out, int64_t D, int64_t C, int64_t A, int warps,
            cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(A) * sizeof(int32_t);
+  const size_t smem =
+      static_cast<size_t>(warp_words(kResident, C, A)) * warps *
+      sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        schedule_kernel<kWarp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        schedule_kernel<kResident>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  int threads = 32;
-  if (!kWarp) {
-    const int64_t want = (A + 31) / 32 * 32;
-    threads = static_cast<int>(want < 1024 ? want : 1024);
-  }
-  schedule_kernel<kWarp><<<static_cast<unsigned>(D), threads, smem, s>>>(
-      clock0, actor, seq, deps, valid, order, clock_out, C, A);
+  const int64_t blocks = (D + warps - 1) / warps;
+  schedule_kernel<kResident><<<static_cast<unsigned>(blocks),
+                               static_cast<unsigned>(32 * warps), smem, s>>>(
+      clock0, actor, seq, deps, valid, order, clock_out, D, C, A);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Warps a block for the form: as many docs as fit kSmemMax (0: none).
+int warps_for(bool resident, int64_t D, int64_t C, int64_t A) {
+  const size_t per = static_cast<size_t>(warp_words(resident, C, A)) *
+                     sizeof(int32_t);
+  int64_t w = D < kWarps ? D : kWarps;
+  while (w > 0 && per * w > kSmemMax) --w;
+  return static_cast<int>(w);
 }
 
 }  // namespace
@@ -144,7 +315,7 @@ extern "C" int amtpu_torch_schedule(const void* clock, const void* actor,
                                     void* new_clock, int64_t D, int64_t C,
                                     int64_t A, void* stream) {
   if (D <= 0) return 0;
-  if (A <= 0 || A > 58112 || D > 2147483647LL)
+  if (A <= 0 || A > 58112 || C < 0 || D > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* c0 = static_cast<const int32_t*>(clock);
@@ -154,6 +325,9 @@ extern "C" int amtpu_torch_schedule(const void* clock, const void* actor,
   const auto* vl = static_cast<const bool*>(valid);
   auto* od = static_cast<int32_t*>(order);
   auto* nc = static_cast<int32_t*>(new_clock);
-  if (A <= 32) return launch<true>(c0, ac, sq, dp, vl, od, nc, D, C, A, s);
-  return launch<false>(c0, ac, sq, dp, vl, od, nc, D, C, A, s);
+  const int resident = A <= 32 ? warps_for(true, D, C, A) : 0;
+  if (resident > 0)
+    return launch<true>(c0, ac, sq, dp, vl, od, nc, D, C, A, resident, s);
+  return launch<false>(c0, ac, sq, dp, vl, od, nc, D, C, A,
+                       warps_for(false, D, C, A), s);
 }

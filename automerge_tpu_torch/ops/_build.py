@@ -54,8 +54,9 @@ KERNELS = {
             ctypes.c_int64] * 3 + [ctypes.c_void_p]),
     },
     'dominance_indexes': {
-        'amtpu_torch_dominance_scan': (ctypes.c_int, [ctypes.c_void_p] * 9 + [
+        'amtpu_torch_route': (ctypes.c_int, [ctypes.c_void_p] * 11 + [
             ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]),
+        'amtpu_torch_route_scratch': (ctypes.c_int64, [ctypes.c_int64] * 3),
     },
 }
 

@@ -7,13 +7,15 @@ the plain version `list_rank.dominance_grouped` for CPU tensors.  A
 kernel that fails to build or launch raises.
 
 `dominance_indexes_cuda` is the card's route of the whole-doc form
-`list_rank.dominance_indexes` (which the JAX package leaves to XLA): it
-regroups the docs' elements and ops by object on the device and
-launches the same kernel, as the JAX engine's `_dominance` regroups on
-the host.  Inputs that do not regroup exactly (`regroupable`: their
-counts depend on the chunking) take a kernel of their own instead,
-`csrc/dominance_indexes.cu`, which walks the chunks as the JAX scan
-does.  `dominance_indexes_auto` picks by device.
+`list_rank.dominance_indexes` (which the JAX package leaves to XLA): a
+kernel of its own, `csrc/dominance_indexes.cu`, in which each doc
+decides on the card whether it regroups by object or walks the chunks
+as the JAX scan does, with no host read.  A doc that regroups takes
+the fast branch: `prep_kernel` gives each element and op a dense
+position (object start + rank), and `query_kernel` rebuilds each op
+chunk's start state over those positions and scans it window by window
+(a warp a doc when the doc fits 32 elements and 32 ops).
+`dominance_indexes_auto` picks by device.
 """
 
 import torch
@@ -24,12 +26,10 @@ from .list_rank import dominance_grouped, dominance_indexes
 
 #: launches of the CUDA kernel (the trace counter's name)
 LAUNCH_METRIC = 'launch.dominance'
-#: launches of the whole-doc route (each launches the kernel once)
+#: launches of the whole-doc route (`csrc/dominance_indexes.cu`)
 INDEXES_METRIC = 'launch.dominance_indexes'
-#: launches of the chunk-scan kernel (inputs that do not regroup)
-SCAN_METRIC = 'launch.dominance_scan'
-#: the kernel's chunk on the whole-doc route (the engine's _DOM_CHUNK)
-INDEXES_CHUNK = 64
+#: device -> the route's branch counters (`branch_counts`)
+_BRANCH_COUNTS = {}
 
 
 def scratch_for(lib, O, L, T, chunk, device):
@@ -96,50 +96,31 @@ def dominance_grouped_auto(vis0, elem_rank, op_elem, op_rank, op_delta,
                              op_valid, chunk=chunk)
 
 
-def regroupable(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
-                op_delta, op_valid):
-    """Whether the whole-doc inputs [D, ...] regroup by object exactly:
-    every element has an object >= 0 and a visibility of 0 or 1; every
-    valid op touches an element 0 <= op_elem < L whose object and rank
-    are op_obj and op_rank; every invalid op has op_obj == -2 and delta 0
-    (as `parallel/mesh.py::_op_metadata` and `_op_deltas` make them).
-    Then an op's index is its object's visible elements of lower rank at
-    batch start plus the deltas of the earlier valid ops of its object
-    that touched a lower rank, whatever the chunking, and an invalid
-    op's is 0.  One bool, read back to the host."""
-    L = elem_obj.shape[1]
-    if L == 0:
-        return False
-    e = op_elem.clamp(0, L - 1).long()
-    ok_valid = (op_elem >= 0) & (op_elem < L) & \
-        (op_obj == elem_obj.gather(1, e)) & (op_rank == elem_rank.gather(1, e))
-    ok_ops = torch.where(op_valid, ok_valid, (op_obj == -2) & (op_delta == 0))
-    ok_elems = (elem_obj >= 0) & ((vis0 == 0) | (vis0 == 1))
-    return bool(ok_ops.all()) and bool(ok_elems.all())
-
-
-def _runs(keys):
-    """For int64 keys [N]: (unique sorted keys, row of each key, position
-    of each key within its row in index order)."""
-    uniq, row = torch.unique(keys, return_inverse=True)
-    order = torch.argsort(row, stable=True)
-    starts = torch.searchsorted(row[order], row[order])
-    pos = torch.empty_like(row)
-    pos[order] = torch.arange(keys.shape[0], device=keys.device) - starts
-    return uniq, row, pos
+def branch_counts(device):
+    """The route's device counters on `device`, int64 [2]: docs that took
+    the fast branch and docs that took the chunk scan, summed over every
+    call since the tensor was made or last zeroed (`.zero_()`).  Reading
+    them is a host read: do it outside the timed or checked region."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
+    counts = _BRANCH_COUNTS.get(dev)
+    if counts is None:
+        counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+        _BRANCH_COUNTS[dev] = counts
+    return counts
 
 
 def dominance_indexes_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj,
                            op_rank, op_delta, op_valid, chunk=128):
     """The card's route of `list_rank.dominance_indexes` ([D, ...] or one
-    doc).  Inputs that pass `regroupable` (the step's always do) go to
-    rows of one object per (doc, object), elements at their index order
-    and ops at their time order within the row, then one launch of the
-    dominance kernel at INDEXES_CHUNK, and the indexes gathered back (0
-    for invalid ops): bit-equal to the plain version at every chunk.
-    Other inputs launch the chunk-scan kernel at `chunk`
-    (`csrc/dominance_indexes.cu`), bit-equal to the plain version at the
-    same chunk."""
+    doc), bit-equal to the plain version at `chunk` (1 to 1024):
+    `csrc/dominance_indexes.cu`, one launch for docs of at most 32
+    elements and ops, two for longer ones.  Each doc decides on the card
+    whether it regroups by object (its counts then do not depend on the
+    chunking: the fast branch) or walks the chunks as the JAX scan does;
+    `branch_counts` counts the docs of each branch.  Nothing is read
+    back to the host; the scratch is sized from the shapes."""
     if elem_obj.device.type != 'cuda':
         raise ValueError('the dominance kernel takes CUDA tensors, got %s'
                          % elem_obj.device)
@@ -148,102 +129,38 @@ def dominance_indexes_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj,
             elem_obj[None], elem_rank[None], vis0[None], op_elem[None],
             op_obj[None], op_rank[None], op_delta[None], op_valid[None],
             chunk=chunk)[0]
-    if not regroupable(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
-                       op_delta, op_valid):
-        return dominance_scan_cuda(elem_obj, elem_rank, vis0, op_elem,
-                                   op_obj, op_rank, op_delta, op_valid,
-                                   chunk)
-    out = indexes_by_object(elem_obj, elem_rank, vis0, op_elem, op_obj,
-                            op_rank, op_delta, op_valid,
-                            dominance_grouped_cuda)
-    trace.metric(INDEXES_METRIC)
-    return out
-
-
-def dominance_scan_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
-                        op_delta, op_valid, chunk=128):
-    """The chunk-scan kernel (`csrc/dominance_indexes.cu`) over [D, ...]
-    inputs on one CUDA device; same output as `list_rank.
-    dominance_indexes` at `chunk` (1 to 1024), for any inputs."""
-    dev = elem_obj.device
-    if dev.type != 'cuda':
-        raise ValueError('the dominance scan kernel takes CUDA tensors, got '
-                         '%s' % dev)
     if not 1 <= chunk <= 1024:
-        raise ValueError('the dominance scan kernel takes a chunk in '
-                         '[1, 1024], got %d' % chunk)
+        raise ValueError('the dominance route takes a chunk in [1, 1024], '
+                         'got %d' % chunk)
+    dev = elem_obj.device
     D, L = elem_obj.shape
     T = op_elem.shape[1]
     elems = [x.to(torch.int32).contiguous() for x in (elem_obj, elem_rank)]
+    vis = vis0.to(torch.float32).contiguous()
     ops = [x.to(torch.int32).contiguous()
            for x in (op_elem, op_obj, op_rank, op_delta)]
     valid = op_valid.to(torch.bool).contiguous()
-    for x in elems + ops + [valid, vis0]:
+    for x in elems + ops + [vis, valid]:
         if x.device != dev:
             raise ValueError('dominance inputs must share one device')
-    if any(x.shape != (D, L) for x in elems + [vis0]) or \
+    if any(x.shape != (D, L) for x in elems + [vis]) or \
             any(x.shape != (D, T) for x in ops + [valid]):
         raise ValueError('dominance inputs must be [D, L] and [D, T]')
-    vis = vis0.to(torch.float32).clone()
     index = torch.empty((D, T), dtype=torch.int32, device=dev)
     if D == 0 or T == 0:
         return index
     lib = _build.kernel('dominance_indexes')
-    err = lib.amtpu_torch_dominance_scan(
+    scratch = torch.empty((lib.amtpu_torch_route_scratch(D, L, T),),
+                          dtype=torch.int32, device=dev)
+    err = lib.amtpu_torch_route(
         elems[0].data_ptr(), elems[1].data_ptr(), vis.data_ptr(),
         ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
-        ops[3].data_ptr(), valid.data_ptr(), index.data_ptr(), D, L, T,
-        chunk, _build.stream_of(vis))
+        ops[3].data_ptr(), valid.data_ptr(), index.data_ptr(),
+        scratch.data_ptr(), branch_counts(dev).data_ptr(), D, L, T, chunk,
+        _build.stream_of(index))
     _build.check(err, 'dominance_indexes')
-    trace.metric(SCAN_METRIC)
+    trace.metric(INDEXES_METRIC)
     return index
-
-
-def indexes_by_object(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
-                      op_delta, op_valid, grouped):
-    """The regroup of `dominance_indexes_cuda` on the inputs' device
-    around `grouped` (the kernel, or its plain version in the CPU
-    tests)."""
-    dev = elem_obj.device
-    D, L = elem_obj.shape
-    T = op_elem.shape[1]
-    out = torch.zeros((D, T), dtype=torch.int32, device=dev)
-    if D == 0 or L == 0 or T == 0:
-        return out
-    if not regroupable(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
-                       op_delta, op_valid):
-        raise ValueError('dominance_indexes inputs do not regroup by object '
-                         '(see dominance_kernel.regroupable)')
-    i64 = torch.int64
-    n_obj = int(elem_obj.max()) + 1
-    docs = torch.arange(D, device=dev, dtype=i64)
-    # element rows: (doc, object), elements in index order
-    uniq, e_row, e_pos = _runs((docs[:, None] * n_obj
-                                + elem_obj.to(i64)).reshape(-1))
-    O = uniq.shape[0]
-    Lp = max(int(e_pos.max()) + 1, int(elem_rank.max()) + 1, 1)
-    v0 = torch.zeros((O, Lp), dtype=torch.float32, device=dev)
-    er = torch.full((O, Lp), -1, dtype=torch.int32, device=dev)
-    v0[e_row, e_pos] = vis0.reshape(-1).to(torch.float32)
-    er[e_row, e_pos] = elem_rank.reshape(-1).to(torch.int32)
-    # op rows: the row of the touched element, ops in time order
-    vd, vt = torch.nonzero(op_valid, as_tuple=True)
-    flat_e = vd * L + op_elem[vd, vt].to(i64)
-    o_row = e_row[flat_e]
-    _, _, o_pos = _runs(o_row)
-    n_t = int(o_pos.max()) + 1 if o_pos.numel() else 1
-    Tp = (n_t + INDEXES_CHUNK - 1) // INDEXES_CHUNK * INDEXES_CHUNK
-    oe = torch.full((O, Tp), -1, dtype=torch.int32, device=dev)
-    orank = torch.full((O, Tp), -1, dtype=torch.int32, device=dev)
-    od = torch.zeros((O, Tp), dtype=torch.int32, device=dev)
-    ov = torch.zeros((O, Tp), dtype=torch.bool, device=dev)
-    oe[o_row, o_pos] = e_pos[flat_e].to(torch.int32)
-    orank[o_row, o_pos] = op_rank[vd, vt].to(torch.int32)
-    od[o_row, o_pos] = op_delta[vd, vt].to(torch.int32)
-    ov[o_row, o_pos] = True
-    idx = grouped(v0, er, oe, orank, od, ov, chunk=INDEXES_CHUNK)
-    out[vd, vt] = idx[o_row, o_pos]
-    return out
 
 
 def dominance_indexes_auto(elem_obj, elem_rank, vis0, op_elem, op_obj,

@@ -56,7 +56,6 @@ def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
     L = obj.shape[0]
     dev = obj.device
     i32 = torch.int32
-    neg1 = torch.tensor(-1, dtype=i32, device=dev)
     rows = torch.arange(L, device=dev)
     if sort_idx is None:
         sort_idx = sibling_sort(obj, parent, ctr, actor, valid)
@@ -64,17 +63,15 @@ def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
 
     # --- 1. sibling groups: (obj, parent) runs in sorted order ----------
     s_valid = valid[si]
-    s_obj = torch.where(s_valid, obj[si], torch.tensor(-2, dtype=i32,
-                                                       device=dev))
-    s_parent = torch.where(s_valid, parent[si], torch.tensor(-3, dtype=i32,
-                                                             device=dev))
+    s_obj = torch.where(s_valid, obj[si], -2)
+    s_parent = torch.where(s_valid, parent[si], -3)
     prev_same = (rows > 0) & (torch.roll(s_obj, 1) == s_obj) \
         & (torch.roll(s_parent, 1) == s_parent)
     next_same = (rows < L - 1) & (torch.roll(s_obj, -1) == s_obj) \
         & (torch.roll(s_parent, -1) == s_parent)
     # next sibling (descending sibling order): arena index, -1 if last
     nxt_arena = torch.where(next_same, sort_idx[(rows + 1).clamp(0, L - 1)],
-                            neg1)
+                            -1)
     sib_next = torch.full((L,), -1, dtype=i32, device=dev)
     sib_next[si] = nxt_arena
     # first child per parent element: the first sorted row of each
@@ -83,15 +80,13 @@ def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
     is_first = ~prev_same & (s_parent >= 0) & s_valid
     tgt = torch.where(is_first, s_parent.long(), L)
     first_child = torch.full((L + 1,), -1, dtype=i32, device=dev)
-    first_child[tgt] = torch.where(is_first, sort_idx, neg1)
+    first_child[tgt] = torch.where(is_first, sort_idx, -1)
     first_child = first_child[:L]
 
     # --- 2. escape pointers: next sibling, else parent's escape ---------
     # -1 = unresolved, -2 = resolved "no escape" (end of object)
     esc = torch.where(sib_next >= 0, sib_next,
-                      torch.where(parent == -1,
-                                  torch.tensor(-2, dtype=i32, device=dev),
-                                  neg1))
+                      torch.where(parent == -1, -2, -1).to(i32))
     link = parent
     for _ in range(n_iters + 1):
         link_safe = link.clamp(0, L - 1).long()
@@ -99,11 +94,11 @@ def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
         unresolved = (esc == -1) & (link >= 0)
         esc = torch.where(unresolved & (consult != -1), consult, esc)
         link = torch.where(unresolved, link[link_safe], link)
-    escape = torch.where(esc == -2, neg1, esc)
+    escape = torch.where(esc == -2, -1, esc)
 
     # --- 3. dfs_next + list ranking -------------------------------------
     dfs_next = torch.where(first_child >= 0, first_child, escape)
-    dfs_next = torch.where(valid, dfs_next, neg1)
+    dfs_next = torch.where(valid, dfs_next, -1)
     dist = (dfs_next >= 0).to(i32)
     nxt = dfs_next
     for _ in range(n_iters):
@@ -117,7 +112,7 @@ def linearize(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
     obj_sizes.index_add_(0, torch.where(valid, obj.long(), L),
                          valid.to(i32))
     size_of_elem = obj_sizes[obj.clamp(0, L).long()]
-    return torch.where(valid, size_of_elem - 1 - dist, neg1).to(i32)
+    return torch.where(valid, size_of_elem - 1 - dist, -1).to(i32)
 
 
 def dominance_grouped(vis0, elem_rank, op_elem, op_rank, op_delta, op_valid,

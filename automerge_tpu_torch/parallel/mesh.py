@@ -15,9 +15,11 @@ over the whole batch: the schedule kernel takes the doc axis as its grid
 object ids offset per doc and parents rebased, sorted by (doc, group,
 time) so that each doc's padding rows (group -1) sort first within the
 doc, and the winners and conflicts mapped back to rows within the doc;
-the list indexes regroup by object for the dominance kernel
-(`ops/dominance_kernel.dominance_indexes_cuda`).  On the CPU the same
-flattening runs the kernels' plain versions.
+the list indexes go through the whole-doc route
+(`ops/dominance_kernel.dominance_indexes_cuda`, `csrc/
+dominance_indexes.cu`).  After the uploads nothing reads the card
+back: the register groups' bound comes from the host's batch.  On the
+CPU the same flattening runs the kernels' plain versions.
 
 The sharded step (`make_mesh`, `build_sharded_step`, `shard_batch` and
 the dp/sp specs) belongs to the multi-GPU slice.
@@ -26,6 +28,7 @@ the dp/sp specs) belongs to the multi-GPU slice.
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops import list_rank, registers
 from ..ops.clock_kernel import schedule_queue_auto
 from ..ops.dominance_kernel import dominance_indexes_auto
@@ -49,16 +52,16 @@ def _op_metadata(elem_obj, elem_rank, op_elem, op_valid):
     return oobj.to(torch.int32), orank.to(torch.int32)
 
 
-def _registers(rg, rt, ra, rs, rc, rd):
+def _registers(rg, rt, ra, rs, rc, rd, n_groups):
     """`resolve_registers` per doc ([D, T] columns, rc [D, T, A]) as one
-    launch over the flattened docs.  Returns the JAX step's [D, T]
-    outputs (conflicts [D, T, WINDOW]) with winner and conflicts as rows
-    within the doc."""
+    launch over the flattened docs; `n_groups` bounds the docs' group ids
+    (`n_groups_of`, from the host's batch).  Returns the JAX step's
+    [D, T] outputs (conflicts [D, T, WINDOW]) with winner and conflicts
+    as rows within the doc."""
     D, T = rg.shape
     dev = rg.device
     i64 = torch.int64
     docs = torch.arange(D, device=dev, dtype=i64)[:, None]
-    n_groups = max(int(rg.max()) + 1, 1) if rg.numel() else 1
     group = torch.where(rg >= 0, docs * n_groups + rg, -1)
     # (doc, group, time) with each doc's padding first: two stable sorts
     perm = torch.sort(rt.reshape(-1), stable=True).indices
@@ -100,19 +103,6 @@ def _linearize(eo, ep, ec, ea, ev, n_iters):
     return rank.reshape(D, L)
 
 
-def _doc_pipeline(batch, n_linearize_iters):
-    """schedule + register-resolve + linearize for a [D, ...] doc batch
-    of tensors: no cross-doc dependency."""
-    order, doc_clock = schedule_queue_auto(
-        batch['clock'], batch['ch_actor'], batch['ch_seq'],
-        batch['ch_deps'], batch['ch_valid'])
-    reg = _registers(batch['rg'], batch['rt'], batch['ra'], batch['rs'],
-                     batch['rc'], batch['rd'])
-    rank = _linearize(batch['eo'], batch['ep'], batch['ec'], batch['ea'],
-                      batch['ev'], n_linearize_iters)
-    return order, doc_clock, reg, rank
-
-
 def _op_deltas(reg, op_row, op_valid):
     """Visibility delta per list op from the register outputs: +1 insert,
     -1 remove, 0 no visibility change (the reference toggles element
@@ -130,27 +120,45 @@ def _step_device(device):
     return _pool_device(device, 'single_step')
 
 
-def single_step(batch, n_linearize_iters, chunk=128, device=None):
-    """The resolver step on one device: the card unless `device` says
-    'cpu' (the kernels' plain versions).
+def n_groups_of(batch):
+    """One past the largest register group id of a numpy batch (at least
+    1): the bound `_registers` offsets each doc's groups by."""
+    rg = np.asarray(batch['rg'])
+    return max(int(rg.max()) + 1, 1) if rg.size else 1
 
-    `batch` is the numpy dict of `mesh_encode.encode_batch` (or
-    `demo_batch`); every array crosses to the device as a private copy
-    (`ops/registers.upload`).  Returns tensors on the device under the
-    JAX step's keys: order [D, C], doc_clock [D, A], frontier [A],
-    alive_after / winner / visible_before / overflow [D, T], conflicts
-    [D, T, WINDOW], rank [D, L] and indexes [D, Tops].  `chunk` is the
-    op chunk of the plain dominance indexes; the card's route gives the
-    same integers whatever the chunk."""
-    dev = _step_device(device)
-    b = {k: registers.upload(np.array(batch[k]), dev) for k in BATCH_KEYS}
-    order, doc_clock, reg, rank = _doc_pipeline(b, n_linearize_iters)
-    frontier = doc_clock.max(dim=0).values
-    od = _op_deltas(reg, b['op_row'], b['op_valid'])
-    oobj, orank = _op_metadata(b['eo'], rank, b['op_elem'], b['op_valid'])
-    indexes = dominance_indexes_auto(
-        b['eo'], rank, b['vis0'], b['op_elem'], oobj, orank, od,
-        b['op_valid'], chunk=chunk)
+
+def upload_batch(batch, device):
+    """The step's input tensors on `device`: every array of BATCH_KEYS as
+    a private copy (`ops/registers.upload`)."""
+    return {k: registers.upload(np.array(batch[k]), device)
+            for k in BATCH_KEYS}
+
+
+def step_tensors(b, n_groups, n_linearize_iters, chunk=128):
+    """The step on uploaded tensors `b` (`upload_batch`), each stage
+    issued inside its trace span (`step.schedule`, `step.registers`,
+    `step.linearize`, `step.op_metadata`, `step.route`: the host's issue
+    time).  On the card nothing here reads the device back: every size
+    comes from the shapes or from `n_groups`."""
+    with trace.span('step.schedule'):
+        order, doc_clock = schedule_queue_auto(
+            b['clock'], b['ch_actor'], b['ch_seq'], b['ch_deps'],
+            b['ch_valid'])
+        frontier = doc_clock.max(dim=0).values
+    with trace.span('step.registers'):
+        reg = _registers(b['rg'], b['rt'], b['ra'], b['rs'], b['rc'],
+                         b['rd'], n_groups)
+    with trace.span('step.linearize'):
+        rank = _linearize(b['eo'], b['ep'], b['ec'], b['ea'], b['ev'],
+                          n_linearize_iters)
+    with trace.span('step.op_metadata'):
+        od = _op_deltas(reg, b['op_row'], b['op_valid'])
+        oobj, orank = _op_metadata(b['eo'], rank, b['op_elem'],
+                                   b['op_valid'])
+    with trace.span('step.route'):
+        indexes = dominance_indexes_auto(
+            b['eo'], rank, b['vis0'], b['op_elem'], oobj, orank, od,
+            b['op_valid'], chunk=chunk)
     return {
         'order': order, 'doc_clock': doc_clock, 'frontier': frontier,
         'alive_after': reg['alive_after'], 'winner': reg['winner'],
@@ -158,6 +166,26 @@ def single_step(batch, n_linearize_iters, chunk=128, device=None):
         'visible_before': reg['visible_before'],
         'overflow': reg['overflow'], 'rank': rank, 'indexes': indexes,
     }
+
+
+def single_step(batch, n_linearize_iters, chunk=128, device=None):
+    """The resolver step on one device: the card unless `device` says
+    'cpu' (the kernels' plain versions).
+
+    `batch` is the numpy dict of `mesh_encode.encode_batch` (or
+    `demo_batch`); every array crosses to the device as a private copy
+    (`upload_batch`, in the trace span `step.uploads`), then
+    `step_tensors` runs the stages.  Returns tensors on the device under
+    the JAX step's keys: order [D, C], doc_clock [D, A], frontier [A],
+    alive_after / winner / visible_before / overflow [D, T], conflicts
+    [D, T, WINDOW], rank [D, L] and indexes [D, Tops].  `chunk` is the op
+    chunk of the plain dominance indexes; the card's route gives the
+    same integers whatever the chunk on the step's inputs."""
+    dev = _step_device(device)
+    with trace.span('step.uploads'):
+        b = upload_batch(batch, dev)
+    return step_tensors(b, n_groups_of(batch), n_linearize_iters,
+                        chunk=chunk)
 
 
 def demo_batch(n_docs=8, n_changes=4, n_actors=4, n_regs=8, n_elems=8,

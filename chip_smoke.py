@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
-port's C++ host runtime and its four CUDA kernels from this checkout
-(registers K1, dominance K2, members K3, the causal schedule
-`clock.cu`), then:
+port's C++ host runtime and its five CUDA kernel sources from this
+checkout (registers K1, dominance K2, members K3, the causal schedule
+`clock.cu`, the whole-doc dominance route `dominance_indexes.cu`), then:
 
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
@@ -98,7 +98,14 @@ port's C++ host runtime and its four CUDA kernels from this checkout
      kernel and plain version with CUDA events beside each call's bound
      (every call of a driven path is held bit-equal; the first call of
      each path is timed, and of the 64-pool catch-up and the fault lanes
-     the first batch's member calls).
+     the first batch's member calls).  The step's two kernels (the
+     schedule and the route) are also held at their edge cases (A of 32
+     and 33, a queue needing C passes, a duplicate in its original's
+     window; a doc with no valid op, a chunk boundary at T, docs of both
+     route branches in one batch, object starts past shared memory),
+     the route's branch counters against the model's per-doc flags, and
+     timed as a CUDA graph of their launches (device time alone) beside
+     the wrapper's back-to-back calls.
 
   12. serves the Backend protocol from the card (run before the checks of
      phase 11, which hold its kernel calls bit-equal too): (a) 32
@@ -158,14 +165,23 @@ port's C++ host runtime and its four CUDA kernels from this checkout
      patches and counters equal to a CPU engine's; (c) `single_step`
      over `mesh_encode.scaling_workload(2048)` (73,728 ops): every output
      key bit-equal to the CPU step's, the schedule kernel (`clock.cu`),
-     K1 and K2 (through the whole-doc dominance route) launch, and
-     `verify_against_pool` passes through a card engine; (d) config 1
-     (one Text doc, 10,000 inserts) through the step as `bench.py::
-     run_config_1_mesh` runs it at sp = 1 (a warm-up, then the median of
-     3 timed runs), bit-equal to the CPU step and verified, and through
-     one card `NativeDocPool`, its patch equal to the card engine's.
-     Phase 3's hostile-staging lane also runs the card engine and the
-     step with every uploaded host array overwritten.
+     K1 and the whole-doc dominance route (`dominance_indexes.cu`)
+     launch, and `verify_against_pool` passes through a card engine; (d)
+     config 1 (one Text doc, 10,000 inserts) through the step as
+     `bench.py::run_config_1_mesh` runs it at sp = 1 (a warm-up, then
+     the median of 3 timed runs), bit-equal to the CPU step and
+     verified, and through one card `NativeDocPool`, its patch equal to
+     the card engine's.  On (c) and (d) the step after its uploads runs
+     under `torch.cuda.set_sync_debug_mode('error')` (no read of the card
+     back to the host) and logs its per-stage times (uploads, schedule,
+     registers, linearize, op metadata and deltas, the route: each
+     stage's trace span on the host and CUDA events on the card); then
+     20 steps of each lane here, 20 with the garbage collector off and
+     20 in a fresh process of this checkout (`tools/step_ab.py --child`)
+     show whether this long-lived process slows the step, with the main
+     thread's share of CPU.  Phase 3's hostile-staging lane also runs
+     the card engine and the step with every uploaded host array
+     overwritten.
   15. drives port frontends (`import automerge_tpu_torch as am`) with
      the `backend=tpu` adapter's Backend surface as their immediate
      backend (after phase 14, before the checks of phase 11, which hold
@@ -195,12 +211,15 @@ import concurrent.futures
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import threading
 import time
 import traceback
 
+#: the checkout this script runs from
+ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_INT_OPS_PER_S = 67e12          # non-tensor 32-bit rate (fp32 entry)
 
@@ -240,23 +259,13 @@ def card_line():
     return out[0]
 
 
-def device_ms(torch, fn, reps=20, rounds=5):
+def device_ms(torch, fn, reps=20, rounds=5, graph=False):
     """Per-call device time of fn(): `reps` back-to-back calls between two
-    CUDA events, divided by `reps`; the median over `rounds`."""
-    fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(rounds):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        per.append(s.elapsed_time(e) / reps)
-    per.sort()
-    return per[len(per) // 2]
+    CUDA events, divided by `reps`; the median over `rounds`.  With
+    `graph`, the calls captured in one CUDA graph (the kernels' device
+    time alone); `tools/step_ab.timed_ms`."""
+    from step_ab import timed_ms
+    return timed_ms(torch, fn, reps, rounds, graph=graph)
 
 
 def registers_launcher(torch, _build, args, window):
@@ -582,9 +591,11 @@ def check_members(torch, card, label, args, window, want_vb=True,
 
 def check_schedule(torch, card, label, args, timed=True):
     """Bit-equality of the schedule kernel with its plain version (torch
-    ops on the card), and (`timed`) the kernel's own time and the plain
-    version's; returns (max abs error, ms, plain ms, bound ms, bound by),
-    the last four None when not timed."""
+    ops on the card), and (`timed`) the wrapper's time (`ms`: back-to-
+    back calls, host work included), the kernel's device time alone (a
+    CUDA graph of its launches) and the plain version's; returns (max
+    abs error, ms, plain ms, bound ms, bound by, graph ms), the last
+    five None when not timed."""
     from automerge_tpu_torch.ops import clock, clock_kernel
     got = clock_kernel.schedule_queue_cuda(*args)
     want = clock.schedule_queue_batch(*args)
@@ -594,31 +605,41 @@ def check_schedule(torch, card, label, args, timed=True):
     if bad:
         raise AssertionError('schedule %s: %d mismatches' % (label, bad))
     if not timed:
-        return err, None, None, None, None
+        return err, None, None, None, None, None
     ms = device_ms(torch, lambda: clock_kernel.schedule_queue_cuda(*args))
+    g_ms = device_ms(torch, lambda: clock_kernel.schedule_queue_cuda(*args),
+                     graph=True)
     plain_ms = device_ms(torch, lambda: clock.schedule_queue_batch(*args),
                          reps=2, rounds=3)
     bound, by = schedule_bound(args)
     D, A = args[0].shape
     order, valid = want[0], args[4]
     log('schedule %s D=%d C=%d A=%d: mismatches 0 (of %d valid changes %d '
-        'applied, %d duplicates, %d never ready), kernel %.4f ms, plain '
-        '%.4f ms, bound %.3g ms (%s) on %s' % (
+        'applied, %d duplicates, %d never ready), wrapper %.4f ms, kernel '
+        'as a CUDA graph %.4f ms, plain %.4f ms, bound %.3g ms (%s) on %s' % (
             label, D, args[1].shape[1], A, int(valid.sum()),
             int(((order >= 0) & (order != clock.NOT_APPLIED)).sum()),
             int((order == clock.DUPLICATE).sum()),
-            int(((order == clock.NOT_APPLIED) & valid).sum()), ms, plain_ms,
-            bound, by, card))
-    return err, ms, plain_ms, bound, by
+            int(((order == clock.NOT_APPLIED) & valid).sum()), ms,
+            g_ms, plain_ms, bound, by, card))
+    return err, ms, plain_ms, bound, by, g_ms
 
 
-def check_indexes(torch, card, label, args, timed=True):
-    """Bit-equality of the whole-doc dominance route (regroup + K2) with
-    the plain `list_rank.dominance_indexes` (chunk 128, the step's
-    default) on the card, and (`timed`) both times; returns (max abs
-    error, ms, plain ms, bound ms, bound by), the last four None when
-    not timed."""
+def check_indexes(torch, card, label, args, timed=True, fast=None):
+    """Bit-equality of the whole-doc dominance route
+    (`csrc/dominance_indexes.cu`) with the plain
+    `list_rank.dominance_indexes` (chunk 128, the step's default) on the
+    card, its docs' branches (`fast`: the docs that must take the fast
+    branch, every doc when None; read from the route's device counters
+    once the timing is done), and (`timed`) the wrapper's time (`ms`:
+    back-to-back calls), the route's device time alone (a CUDA graph of
+    its launches) and the plain version's; returns (max abs error, ms,
+    plain ms, bound ms, bound by, graph ms), the last five None when not
+    timed."""
     from automerge_tpu_torch.ops import dominance_kernel, list_rank
+    D = args[0].shape[0] if args[0].dim() == 2 else 1
+    counts = dominance_kernel.branch_counts(args[0].device)
+    counts.zero_()
     got = dominance_kernel.dominance_indexes_cuda(*args)
     want = list_rank.dominance_indexes(*args, chunk=128)
     bad = int((got != want).sum())
@@ -626,53 +647,93 @@ def check_indexes(torch, card, label, args, timed=True):
     if bad:
         raise AssertionError('dominance_indexes %s: %d mismatches'
                              % (label, bad))
-    if not timed:
-        return err, None, None, None, None
-    ms = device_ms(torch, lambda: dominance_kernel.dominance_indexes_cuda(
-        *args))
-    plain_ms = device_ms(torch, lambda: list_rank.dominance_indexes(
-        *args, chunk=128), reps=2, rounds=3)
-    bound, by = indexes_bound(args)
-    D, L = args[0].shape
-    log('dominance_indexes %s D=%d L=%d T=%d: mismatches 0 (max index %d), '
-        'route %.4f ms, plain %.4f ms, bound %.3g ms (%s) on %s' % (label, D, L, args[3].shape[1], int(want.max())
-                   if want.numel() else 0, ms, plain_ms, bound, by, card))
-    return err, ms, plain_ms, bound, by
+    ms = plain_ms = bound = by = g_ms = None
+    if timed:
+        ms = device_ms(torch, lambda: dominance_kernel.dominance_indexes_cuda(
+            *args))
+        g_ms = device_ms(torch, lambda: dominance_kernel
+                         .dominance_indexes_cuda(*args), graph=True)
+        plain_ms = device_ms(torch, lambda: list_rank.dominance_indexes(
+            *args, chunk=128), reps=2, rounds=3)
+        bound, by = indexes_bound(args)
+    # every run of the route adds (fast docs, scan docs) to the counters
+    n_fast, n_scan = counts.tolist()
+    want_fast = D if fast is None else fast
+    runs = (n_fast + n_scan) // max(D, 1)
+    if args[3].shape[-1] and (runs < 1 or n_fast + n_scan != runs * D
+                              or n_fast != runs * want_fast):
+        raise AssertionError('dominance_indexes %s: branch counters %d fast '
+                             '%d scan, expected %d of %d docs fast a run'
+                             % (label, n_fast, n_scan, want_fast, D))
+    if timed:
+        L = args[0].shape[-1]
+        log('dominance_indexes %s D=%d L=%d T=%d: mismatches 0 (max index '
+            '%d), %d fast / %d chunk-scan docs a run, wrapper %.4f ms, '
+            'route as a CUDA graph %.4f ms, plain %.4f ms, bound %.3g ms '
+            '(%s) on %s' % (
+                label, D, L, args[3].shape[-1], int(want.max())
+                if want.numel() else 0, want_fast, D - want_fast, ms,
+                g_ms, plain_ms, bound, by, card))
+    return err, ms, plain_ms, bound, by, g_ms
 
 
 def step_cases(torch, np, card):
     """The schedule kernel and the whole-doc dominance route at seeded
     random shapes (duplicates, never-ready changes, padding rows, A above
-    a warp; invalid ops and padding elements), and the chunk-scan kernel
-    (`csrc/dominance_indexes.cu`, off the step's path) on inputs that do
-    not regroup; returns the largest error of each (0: bit-equal)."""
-    from automerge_tpu_torch.ops import dominance_kernel
+    a warp; invalid ops and padding elements), at their edge cases
+    (`torch_step_cases.schedule_edge_cases`, `indexes_edge_cases`: A of
+    32 and 33, a queue of C passes, a duplicate in its original's
+    window, a doc of padding; a doc with no valid op, ops ending at a
+    chunk boundary, docs of both branches in one batch, object starts
+    past shared memory), and on inputs that do not regroup (the route's
+    chunk-scan branch, chunks 16 and 128); each route call's branches
+    are held to the model's per-doc flags.  Returns the largest error of
+    each (0: bit-equal)."""
     from torch_step_cases import (INDEXES_SHAPES, SCAN_SHAPES,
                                   SCHEDULE_SHAPES, dominance_indexes_case,
-                                  dominance_scan_case, schedule_case)
+                                  dominance_scan_case, indexes_edge_cases,
+                                  route_regroups, schedule_case,
+                                  schedule_edge_cases)
     dev = torch.device('cuda')
 
     def on_card(case):
         return [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+
+    def model_fast(case):
+        return sum(route_regroups(*[np.asarray(x[d]) for x in case])
+                   for d in range(case[0].shape[0]))
 
     err_s = err_i = 0
     for shape in SCHEDULE_SHAPES:
         e = check_schedule(torch, card, 'random', on_card(schedule_case(
             np.random.RandomState(sum(shape)), *shape)))[0]
         err_s = max(err_s, e)
+    for label, case in schedule_edge_cases(np.random.RandomState(12)):
+        err_s = max(err_s, check_schedule(torch, card, 'edge: ' + label,
+                                          on_card(case), timed=False)[0])
+    log('schedule: %d edge cases bit-equal to the plain version on %s'
+        % (len(schedule_edge_cases(np.random.RandomState(12))), card))
     for shape in INDEXES_SHAPES:
         e = check_indexes(torch, card, 'random', on_card(
             dominance_indexes_case(np.random.RandomState(sum(shape)),
                                    *shape)))[0]
         err_i = max(err_i, e)
     for shape in SCAN_SHAPES:
-        args = on_card(dominance_scan_case(np.random.RandomState(sum(shape)),
-                                           *shape))
-        if dominance_kernel.regroupable(*args):
+        case = dominance_scan_case(np.random.RandomState(sum(shape)), *shape)
+        if model_fast(case):
             raise AssertionError('a chunk-dependent case regroups')
-        e = check_indexes(torch, card, 'chunk-dependent (scan kernel, '
-                          'chunk 128)', args)[0]
+        e = check_indexes(torch, card, 'chunk-dependent (chunk-scan branch, '
+                          'chunk 128)', on_card(case), fast=0)[0]
         err_i = max(err_i, e)
+    edges = indexes_edge_cases(np.random.RandomState(13))
+    for label, case in edges:
+        fast = model_fast(case)
+        e = check_indexes(torch, card, 'edge: ' + label, on_card(case),
+                          timed=False, fast=fast)[0]
+        err_i = max(err_i, e)
+        log('dominance_indexes edge: %s: bit-equal, %d of %d docs on the '
+            'fast branch (the model\'s flags) on %s'
+            % (label, fast, case[0].shape[0], card))
     return err_s, err_i
 
 
@@ -2576,6 +2637,69 @@ def step_equal(label, got, want):
                                  % (label, k))
 
 
+def stages_text(stages):
+    """One line of `step_ab.time_steps`'s stages: each span's issue ms on
+    the host and ms between CUDA events on the card."""
+    return ', '.join('%s issued %.3f / card %.3f' % (
+        k[len('step.'):], v['issue_ms'], v['event_ms'])
+        for k, v in stages.items())
+
+
+def step_process_check(torch, mesh, trace, card, lanes):
+    """Whether the step is slower in this long-lived process than in a
+    fresh one, and why: for each lane (name, batch, linearize
+    iterations) 20 steps here with the garbage collector on, 20 with it
+    off, and 20 in a fresh process of this checkout (`tools/step_ab.py
+    --child`), each with its main thread's share of CPU over the runs
+    and its stages' issue times; beside this process's live threads."""
+    import collections
+    import gc
+
+    from step_ab import run_child, time_steps
+    out = {'threads': dict(collections.Counter(
+        re.sub(r'\d+', 'N', t.name) for t in threading.enumerate()))}
+    for lane, batch, n_iters in lanes:
+        here = time_steps(torch, mesh, trace, batch, n_iters, runs=20)
+        gc.disable()
+        try:
+            gc_off = time_steps(torch, mesh, trace, batch, n_iters,
+                                runs=20)
+        finally:
+            gc.enable()
+        out[lane] = {'here': here, 'gc_off': gc_off}
+    fresh = run_child(ROOT, 20)
+    for lane, _, _ in lanes:
+        out[lane]['fresh'] = fresh[lane]
+        for arm in ('here', 'gc_off', 'fresh'):
+            got = out[lane][arm]
+            walls = sorted(got['walls'])
+            log('step %s, %s: median %.4f s (min %.4f) of %d runs, main '
+                'thread CPU %.3f of %.3f s; %s on %s' % (
+                    lane, {'here': 'this process',
+                           'gc_off': 'this process, gc off',
+                           'fresh': 'a fresh process'}[arm],
+                    walls[len(walls) // 2], walls[0], len(walls),
+                    got['loop_cpu_s'], got['loop_s'],
+                    stages_text(got['stages']), card))
+    log('step process check: %d threads alive here %s on %s'
+        % (sum(out['threads'].values()), json.dumps(out['threads']), card))
+    return out
+
+
+def step_without_host_reads(torch, mesh, label, batch, n_iters, want):
+    """The step's post-upload part (`mesh.step_tensors`: schedule through
+    the route) under torch.cuda.set_sync_debug_mode('error'): any read of
+    the card back to the host raises.  Its outputs must equal `want`."""
+    b = mesh.upload_batch(batch, torch.device('cuda'))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = mesh.step_tensors(b, mesh.n_groups_of(batch), n_iters)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_equal(label + ' (sync-debug error mode)', out, want)
+
+
 def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
                  batch3, out_gpu3, pool3, packed):
     """Phase 14: the batched engine and the single-device step.
@@ -2587,13 +2711,17 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
     oracle row, patches and `fallback.*` counters equal to a CPU
     engine's.  (c) `single_step` on `scaling_workload(2048)` (73,728 ops,
     the multichip workload at dp = 1): every output key bit-equal to the
-    CPU step's, the schedule kernel, K1 and K2 (through the whole-doc
-    route) launch, `verify_against_pool` through a card engine.  (d)
-    config 1 (one Text doc, 10,000 inserts) as `bench.py::
-    run_config_1_mesh` runs it at sp = 1: a counted warm-up run, then the
-    median of 3 timed runs, bit-equal to the CPU step, verified against a
-    card engine; and config 1 through one card `NativeDocPool`, its patch
-    equal to the card engine's.  Returns the phase's report."""
+    CPU step's, the schedule kernel, K1 and the whole-doc route launch,
+    `verify_against_pool` through a card engine.  (d) config 1 (one Text
+    doc, 10,000 inserts) as `bench.py::run_config_1_mesh` runs it at sp
+    = 1: a counted warm-up run, then the median of 3 timed runs,
+    bit-equal to the CPU step, verified against a card engine; and
+    config 1 through one card `NativeDocPool`, its patch equal to the
+    card engine's.  On both step lanes the post-upload part runs once
+    more under the sync-debug mode 'error' (no host read; outputs equal
+    to the CPU step's), and 3 runs log per-stage times (`step_ab.
+    time_steps`, the median run's); then `step_process_check`.  Returns
+    the phase's report."""
     import msgpack
 
     from automerge_tpu_torch import telemetry, trace
@@ -2601,6 +2729,7 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
     from automerge_tpu_torch.ops import list_rank
     from automerge_tpu_torch.parallel import mesh, mesh_encode
     from automerge_tpu_torch.parallel.engine import TPUDocPool
+    from step_ab import time_steps
     t_phase = time.perf_counter()
     report = {}
 
@@ -2670,15 +2799,20 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
     n_iters = list_rank.ceil_log2(max(meta['max_arena'], 1)) + 1
     n_ops = workloads.op_count(wl)
     out, wall_c, mc = drive('step scaling 2048 gpu', lambda: mesh.single_step(
-        batch, n_iters), need=(KS, K1, K2, KI), waves=None)
-    step_equal('step scaling 2048', out,
-               mesh.single_step(batch, n_iters, device='cpu'))
+        batch, n_iters), need=(KS, K1, KI), waves=None)
+    cpu_out = mesh.single_step(batch, n_iters, device='cpu')
+    step_equal('step scaling 2048', out, cpu_out)
+    step_without_host_reads(torch, mesh, 'step scaling 2048', batch, n_iters,
+                            cpu_out)
+    stepped = time_steps(torch, mesh, trace, batch, n_iters)
+    walls_c, stages_c = stepped['walls'], stepped['stages']
     t = time.perf_counter()
     mesh_encode.verify_against_pool(wl, meta, out)
     ver_s = time.perf_counter() - t
     report['scaling_2048'] = {'docs': len(wl), 'ops': n_ops,
                               'encode_s': enc_s, 'step_s': wall_c,
-                              'verify_s': ver_s,
+                              'verify_s': ver_s, 'step_runs_s': walls_c,
+                              'stages_ms': stages_c,
                               'shapes': {k: list(batch[k].shape) for k in (
                                   'ch_deps', 'rc', 'eo', 'op_elem')}}
     log('step scaling 2048 gpu: %d docs, %d ops, encode %.3f s, step %.4f s '
@@ -2686,6 +2820,11 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
         'against a card engine in %.3f s; launches %s on %s' % (
             len(wl), n_ops, enc_s, wall_c, ver_s,
             {k: mc.get(k, 0) for k in (KS, K1, K2, KI)}, card))
+    log('step scaling 2048 gpu: no host read after the uploads (sync-debug '
+        'error mode), outputs equal; stages of the median of 3 runs (walls '
+        '%s s), ms issued on the host and between CUDA events as each '
+        'span closes: %s on %s' % (['%.4f' % w for w in walls_c],
+                                   stages_text(stages_c), card))
 
     # -- (d) config 1: the step and one card pool -------------------------
     wl1 = workloads.build_config_1(random.Random(7))
@@ -2693,17 +2832,14 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
     batch1, meta1 = mesh_encode.encode_batch(wl1, sp=1)
     n_iters1 = list_rank.ceil_log2(max(meta1['max_arena'], 1)) + 1
     out1, wall_w, _ = drive('step config1 gpu', lambda: mesh.single_step(
-        batch1, n_iters1), need=(KS, K1, K2, KI), waves=None)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        mesh.single_step(batch1, n_iters1)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
+        batch1, n_iters1), need=(KS, K1, KI), waves=None)
+    stepped = time_steps(torch, mesh, trace, batch1, n_iters1)
+    times, stages1 = stepped['walls'], stepped['stages']
     med = sorted(times)[1]
-    step_equal('step config1', out1,
-               mesh.single_step(batch1, n_iters1, device='cpu'))
+    cpu_out1 = mesh.single_step(batch1, n_iters1, device='cpu')
+    step_equal('step config1', out1, cpu_out1)
+    step_without_host_reads(torch, mesh, 'step config1', batch1, n_iters1,
+                            cpu_out1)
     mesh_encode.verify_against_pool(wl1, meta1, out1)
     pool1 = NativeDocPool()
     payload1 = packed(wl1)
@@ -2716,6 +2852,7 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
                              'the card engine\'s or the CPU pool\'s')
     report['config1'] = {'ops': n_ops1, 'warm_up_s': wall_w,
                          'step_runs_s': times, 'step_median_s': med,
+                         'stages_ms': stages1,
                          'step_ops_per_s': n_ops1 / med,
                          'pool_wall_s': wall_p}
     log('step config1 gpu: %d ops, warm-up %.4f s, runs %s, median %.4f s '
@@ -2723,6 +2860,15 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
         'engine; one card pool %.4f s, patch equal to the card engine\'s on '
         '%s' % (n_ops1, wall_w, ['%.4f' % x for x in times], med,
                 n_ops1 / med, wall_p, card))
+    log('step config1 gpu: no host read after the uploads (sync-debug error '
+        'mode), outputs equal; stages of the median run, ms issued on the '
+        'host and between CUDA events as each span closes: %s on %s'
+        % (stages_text(stages1), card))
+    t = time.perf_counter()
+    report['process_check'] = step_process_check(
+        torch, mesh, trace, card, (('config1', batch1, n_iters1),
+                                   ('scaling2048', batch, n_iters)))
+    log('step process check: %.1f s' % (time.perf_counter() - t))
     report['phase_s'] = time.perf_counter() - t_phase
     log('engine phase: %.1f s wall on %s' % (report['phase_s'], card))
     log('engine: ' + json.dumps(report))
@@ -2804,6 +2950,7 @@ def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2812,11 +2959,12 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
+    sys.path.insert(0, ROOT)
     # the member kernel's random and edge-case inputs, shared with the
     # CPU tests
-    sys.path.insert(1, os.path.join(root, 'tests'))
+    sys.path.insert(1, os.path.join(ROOT, 'tests'))
+    # the step-timing loops (`tools/step_ab.py`), shared with the A/B tool
+    sys.path.append(os.path.join(ROOT, 'tools'))
     try:
         import automerge_tpu_torch  # noqa: F401
     except ImportError:
@@ -2829,6 +2977,7 @@ def main():
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
+    log('chip_smoke: %.1f s wall' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': kernels}))
     log(card_line())
     log(json.dumps({'ok': True, 'device': {
@@ -3204,7 +3353,10 @@ def run(torch):
     keystroke = {}
     err1, err2 = kernel_cases(torch, np, card)
     err3 = member_cases(torch, np, card)
+    t_cases = time.perf_counter()
     err_s, err_i = step_cases(torch, np, card)
+    log('schedule and route seeded and edge cases: %.1f s'
+        % (time.perf_counter() - t_cases))
 
     # at the main paths' own inputs (every call of the driven paths,
     # each held bit-equal): kernel, wrapper and plain times of the first
@@ -3354,8 +3506,12 @@ def run(torch):
             size: by_path[k].get('resident %d gpu' % size, 0)
             / resident[size]['steps'] for size in resident}
     # the schedule kernel and the whole-doc dominance route at the step's
-    # inputs (phase 14's lanes (c) and (d)): every call held bit-equal,
-    # the first call of each path timed beside its plain version
+    # inputs (phase 14's lanes (c) and (d)): every call held bit-equal
+    # (every doc of the route's calls on the fast branch), the first call
+    # of each path timed beside its plain version; `ms` is back-to-back
+    # wrapper calls (as for these two since they were ported), `graph_ms`
+    # the kernels' device time alone (a CUDA graph of the launches)
+    t_step_kernels = time.perf_counter()
     for key, name, check, size_of, shape_of, source, replaces, err in (
             ('schedule', 'schedule', check_schedule,
              lambda a: a[3].numel(),
@@ -3367,8 +3523,7 @@ def run(torch):
              lambda a: a[0].numel() * a[3].shape[1],
              lambda a: 'D=%d L=%d T=%d' % (tuple(a[0].shape)
                                           + (a[3].shape[1],)),
-             'automerge_tpu_torch/csrc/dominance.cu (regrouped by '
-             'automerge_tpu_torch/ops/dominance_kernel.py)',
+             'automerge_tpu_torch/csrc/dominance_indexes.cu',
              'automerge_tpu/ops/list_rank.py:195 (XLA, no Pallas kernel)',
              err_i)):
         metric = KS if key == 'schedule' else KI
@@ -3376,27 +3531,28 @@ def run(torch):
         best = None
         for path, args, _kw in captured[key]:
             timed = path not in seen
-            e, ms, plain_ms, bound, by = check(
+            e, ms, plain_ms, bound, by, g_ms = check(
                 torch, card, 'main path %s' % path, args, timed=timed)
             err = max(err, e)
             if not timed:
                 continue
             seen[path] = {'shape': shape_of(args),
-                          'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+                          'ms': ms, 'graph_ms': g_ms,
+                          'plain_ms': plain_ms, 'bound_ms': bound,
                           'bound_by': by}
             if best is None or size_of(args) > best[0]:
-                best = (size_of(args), path, ms, plain_ms, bound, by,
-                        seen[path]['shape'])
+                best = (size_of(args), path, seen[path])
         if best is None:
             raise AssertionError('%s: no main-path call was captured' % key)
-        _, path, ms, plain_ms, bound, by, shape = best
-        rows[name] = (0, {
+        _, path, timing = best
+        rows[name] = (0, dict({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': launches[metric],
             'launches_by_path': by_path[metric], 'timed_path': path,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': by, 'library_ms': None, 'shape': shape,
-            'paths': seen, 'max_abs_err': err})
+            'library_ms': None, 'paths': seen, 'max_abs_err': err},
+            **timing))
+    log('schedule and route main-path checks and timing: %.1f s'
+        % (time.perf_counter() - t_step_kernels))
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
     rows['members'][1]['max_abs_err'] = err3

@@ -7,8 +7,10 @@ array) must give every output key of the JAX `single_step` (vmapped per
 doc), element for element, padding rows included; and
 `verify_against_pool` must pass through the port's own engine.  The
 whole-doc dominance indexes are held to the JAX function on random
-inputs at chunks 16 and 128, and so is their regrouped form, the card's
-route with the kernel's plain version in its place.
+inputs at chunks 16 and 128, and so is the model of the card's route
+(`tests/torch_step_cases.route_model`: the per-doc regroup flag, the
+dense positions, each chunk's windowed start-state prefix and the
+in-chunk term of `csrc/dominance_indexes.cu`).
 """
 
 import random
@@ -20,15 +22,18 @@ import torch
 from automerge_tpu.ops import list_rank as JL
 from automerge_tpu.parallel import mesh as JM
 from automerge_tpu.parallel import mesh_encode as JE
+from automerge_tpu_torch import trace
 from automerge_tpu_torch.ops import dominance_kernel, list_rank
 from automerge_tpu_torch.parallel import mesh as M
 from automerge_tpu_torch.parallel import mesh_encode as E
 from tests.torch_step_cases import (SCAN_SHAPES, dominance_indexes_case,
-                                    dominance_scan_case)
+                                    dominance_scan_case, route_model)
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 OUT_KEYS = ('order', 'doc_clock', 'frontier', 'alive_after', 'winner',
             'conflicts', 'visible_before', 'overflow', 'rank', 'indexes')
+STEP_SPANS = ('step.uploads', 'step.schedule', 'step.registers',
+              'step.linearize', 'step.op_metadata', 'step.route')
 
 
 def encode_both(workload, **kw):
@@ -143,6 +148,34 @@ def test_verify_catches_a_wrong_index():
         E.verify_against_pool(workload, meta, out, device='cpu')
 
 
+def test_step_stages_and_post_upload_part():
+    """`single_step` issues each stage inside its trace span
+    (`step.uploads` through `step.route`), and its post-upload part
+    (`step_tensors` on `upload_batch`, with the register groups' bound
+    from the host's batch) gives its outputs."""
+    batch = M.demo_batch()
+    before = trace.snapshot()['spans']
+    out = M.single_step(batch, 4, device='cpu')
+    after = trace.snapshot()['spans']
+    grew = {k for k in after
+            if k.startswith('step.') and after[k] > before.get(k, -1.0)}
+    assert grew == set(STEP_SPANS)
+    assert M.n_groups_of(batch) == int(batch['rg'].max()) + 1
+    again = M.step_tensors(M.upload_batch(batch, torch.device('cpu')),
+                           M.n_groups_of(batch), 4)
+    for k in OUT_KEYS:
+        assert torch.equal(again[k], out[k]), k
+
+
+def test_route_wrapper_refuses_cpu_tensors():
+    case = [torch.from_numpy(x) for x in dominance_indexes_case(
+        np.random.RandomState(3), 2, 8, 8, 1)]
+    with pytest.raises(ValueError, match='CUDA'):
+        dominance_kernel.dominance_indexes_cuda(*case)
+    with pytest.raises(ValueError, match='CUDA'):
+        dominance_kernel.dominance_indexes_cuda(*[x[0] for x in case])
+
+
 def test_step_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
@@ -164,23 +197,37 @@ def test_dominance_indexes(chunk, D, L, T, n_obj):
     np.testing.assert_array_equal(
         list_rank.dominance_indexes(*[x[0] for x in tt], chunk=chunk)
         .numpy(), want[0])
-    # the card's route, with the kernel's plain version in its place
-    assert dominance_kernel.regroupable(*tt)
-    regrouped = dominance_kernel.indexes_by_object(
-        *tt, list_rank.dominance_grouped)
-    np.testing.assert_array_equal(regrouped.numpy(), want)
+    # the model of the card's route: every doc takes the fast branch, at
+    # the kernel's chunk and window and at ones that cut these sizes finer
+    for cut in ({}, dict(K=16, window=24)):
+        routed, flags = route_model(case, scan_at(chunk), **cut)
+        assert flags.all()
+        np.testing.assert_array_equal(routed, want)
+
+
+def scan_at(chunk):
+    """One doc's chunk walk (the plain version) for `route_model`."""
+    def scan(doc):
+        return list_rank.dominance_indexes(
+            *[torch.from_numpy(np.ascontiguousarray(x)) for x in doc],
+            chunk=chunk).numpy()
+    return scan
 
 
 def test_dominance_indexes_inconsistent_inputs_are_not_regroupable():
     """Inputs whose counts depend on the chunking (an invalid op of a real
-    object with a delta) do not pass to the card's route."""
-    case = [torch.from_numpy(x) for x in dominance_indexes_case(
-        np.random.RandomState(1), 2, 20, 40, 2)]
-    assert dominance_kernel.regroupable(*case)
-    ov = case[7].clone()
+    object with a delta) do not take the route's fast branch: the
+    model's flag is per doc, so only the doc that holds one turns."""
+    case = dominance_indexes_case(np.random.RandomState(1), 2, 20, 40, 2)
+    assert route_model(case, scan_at(128))[1].all()
+    ov = case[7].copy()
     ov[0, 3] = False
-    bad = case[:7] + [ov]
-    assert not dominance_kernel.regroupable(*bad)
+    bad = case[:7] + (ov,)
+    got, flags = route_model(bad, scan_at(128))
+    assert list(flags) == [False, True]
+    tt = [torch.from_numpy(x) for x in bad]
+    np.testing.assert_array_equal(
+        got, list_rank.dominance_indexes(*tt, chunk=128).numpy())
 
 
 def test_config1_workload():
@@ -205,7 +252,7 @@ def test_dominance_indexes_chunk_dependent_inputs(chunk, shape):
     D = shape[0]
     case = dominance_scan_case(np.random.RandomState(sum(shape)), *shape)
     tt = [torch.from_numpy(x) for x in case]
-    assert not dominance_kernel.regroupable(*tt)
+    assert not route_model(case, scan_at(chunk))[1].any()
     want = np.stack([np.asarray(JL.dominance_indexes(
         *[x[d] for x in case], chunk=chunk)) for d in range(D)])
     got = list_rank.dominance_indexes(*tt, chunk=chunk)

@@ -70,3 +70,288 @@ def dominance_scan_case(rs, D, L, T, n_obj):
 
 #: (D, L, T, objects per doc) of the chunk-scan kernel's random cases
 SCAN_SHAPES = ((3, 40, 300, 3), (16, 500, 700, 4))
+
+
+# -- models of the two step kernels' algorithms (numpy) ---------------------
+
+#: `schedule_queue`'s sentinels (ops/clock.py)
+NOT_APPLIED = 2147483647
+DUPLICATE = -2
+
+
+def resolve_window(cand, want, actor, seq, clock, order, counter,
+                   max_actors=8):
+    """The kernel's one round for a whole window (`resolve_whole_window`):
+    supposing every candidate applies in order, the clock each sees at
+    its turn is the window-start clock with each candidate author's entry
+    raised to the highest seq of that actor among the candidates below;
+    if every candidate is ready under it, they all apply (duplicates
+    where that clock covers their seq).  Returns the new counter, or None
+    (nothing changed) when one would not be ready."""
+    lanes = [i for i in sorted(cand) if cand[i]]
+    authors = {int(actor[i]) for i in lanes}
+    if not lanes or len(authors) > max_actors:
+        return None
+    seen = clock.copy()
+    plan = []
+    for i in lanes:
+        if (want[i] > seen).any():
+            return None
+        plan.append((i, seq[i] <= seen[actor[i]]))
+        seen[actor[i]] = max(seen[actor[i]], seq[i])
+    for i, dup in plan:
+        order[i] = DUPLICATE if dup else counter
+        counter += 0 if dup else 1
+    clock[:] = seen
+    return counter
+
+
+def schedule_window_model(clock, actor, seq, deps, valid, window=32,
+                          whole=True):
+    """The schedule kernel's walk (`csrc/clock.cu`): per doc, passes over
+    windows of `window` changes; each candidate counts its unmet actors
+    once against the clock at the window's start; with `whole` (the
+    kernel's resident form, A <= 32) the window is first tried in one
+    round (`resolve_window`); else the lowest ready change above the last
+    applied one is applied, and only the candidates above it drop their
+    count, by one, when their wanted entry for the moved actor equals its
+    new value.  Returns (order, clock)."""
+    clock = np.array(clock, np.int32)
+    D, C = actor.shape
+    A = clock.shape[1]
+    order = np.full((D, C), NOT_APPLIED, np.int32)
+    for d in range(D):
+        counter = 0
+        progress = True
+        while progress:
+            progress = False
+            for w0 in range(0, C, window):
+                lanes = range(w0, min(C, w0 + window))
+                cand = {i: bool(valid[d, i]) and 0 <= actor[d, i] < A
+                        and order[d, i] == NOT_APPLIED for i in lanes}
+                want = {}
+                unmet = {}
+                for i in lanes:
+                    if cand[i]:
+                        row = deps[d, i].copy()
+                        row[actor[d, i]] = seq[d, i] - 1
+                        want[i] = row
+                        unmet[i] = int((row > clock[d]).sum())
+                if whole and A <= 32:
+                    got = resolve_window(cand, want, actor[d], seq[d],
+                                         clock[d], order[d], counter)
+                    if got is not None:
+                        counter = got
+                        progress = True
+                        continue
+                above = w0
+                while True:
+                    ready = [i for i in lanes
+                             if i >= above and cand[i] and unmet[i] == 0]
+                    if not ready:
+                        break
+                    r = ready[0]
+                    ar, sr = actor[d, r], seq[d, r]
+                    dup = sr <= clock[d, ar]
+                    order[d, r] = DUPLICATE if dup else counter
+                    cand[r] = False
+                    progress = True
+                    if not dup:
+                        counter += 1
+                        clock[d, ar] = sr
+                        for i in lanes:
+                            if i > r and cand[i] and want[i][ar] == sr:
+                                unmet[i] -= 1
+                    above = r + 1
+    return order, clock
+
+
+#: the route's fast-branch chunk and position window
+#: (`csrc/dominance_indexes.cu`: kChunk, kWindow) and its short-doc limit
+ROUTE_CHUNK = 256
+ROUTE_WINDOW = 49152
+ROUTE_SHORT = 32
+
+
+def route_regroups(eo, er, vis, oe, oo, orr, od, ov):
+    """The route's per-doc test ([L] and [T] columns of one doc): every
+    element has 0 <= obj < L, vis in {0, 1} and -1 <= rank < (elements of
+    its object); every valid op touches an element 0 <= e < L of its own
+    object and rank; every invalid op has obj -2 and delta 0."""
+    L = eo.shape[0]
+    in_range = (eo >= 0) & (eo < L)
+    cnt = np.bincount(eo[in_range], minlength=L)
+    ok_e = in_range & ((vis == 0) | (vis == 1)) & (er >= -1)
+    ok_e &= er < cnt[np.clip(eo, 0, max(L - 1, 0))] if L else True
+    if L:
+        e = np.clip(oe, 0, L - 1)
+        ok_valid = (oe >= 0) & (oe < L) & (oo == eo[e]) & (orr == er[e])
+    else:
+        ok_valid = np.zeros(oe.shape, bool)
+    ok_ops = np.where(ov, ok_valid, (oo == -2) & (od == 0))
+    return bool(ok_e.all() and ok_ops.all())
+
+
+def route_fast(eo, er, vis, oe, oo, orr, od, ov, K=ROUTE_CHUNK,
+               window=ROUTE_WINDOW):
+    """The fast branch of one doc that regroups, as the long-doc kernels
+    compute it: dense positions (object o spans count(o) + 1 positions
+    from start(o); an element sits at start(obj) + rank + 1); then per
+    chunk c of K ops, the count of each position at the chunk's start
+    (visible elements plus the deltas of the valid ops of chunks before
+    c), window by window of `window` positions, each window's exclusive
+    prefix plus the carry of the windows below (H); an op t of chunk c
+    at position p with object start lo gets
+      H(p) - H(lo) + the deltas of chunk c's valid ops before t at
+      positions in [lo, p).
+    Invalid ops get 0."""
+    L, T = eo.shape[0], oe.shape[0]
+    cnt = np.bincount(eo, minlength=L).astype(np.int64)
+    start = np.concatenate([[0], np.cumsum(cnt + 1)[:-1]]).astype(np.int64)
+    elem_pos = np.where(vis != 0, start[eo] + er + 1, -1)
+    lo = np.where(ov, start[np.clip(np.where(ov, oo, 0), 0, max(L - 1, 0))]
+                  if L else 0, 0)
+    op_pos = np.where(ov, lo + orr + 1, -1)
+    live = ov & (od != 0)
+    out = np.zeros(T, np.int64)
+    for c0 in range(0, T, K):
+        at = {}
+        carry = 0
+        for w0 in range(0, 2 * L, window):
+            n = min(window, 2 * L - w0)
+            hist = np.zeros(n, np.int64)
+            sel = (elem_pos >= w0) & (elem_pos < w0 + n)
+            np.add.at(hist, elem_pos[sel] - w0, 1)
+            j = np.arange(c0)
+            sel = live[j] & (op_pos[j] >= w0) & (op_pos[j] < w0 + n)
+            np.add.at(hist, op_pos[j][sel] - w0, od[j][sel])
+            prefix = carry + np.concatenate([[0], np.cumsum(hist)])[:-1]
+            for k in range(c0, min(T, c0 + K)):
+                for x in (op_pos[k], lo[k]):
+                    if ov[k] and w0 <= x < w0 + n:
+                        at[x] = prefix[x - w0]
+            carry += int(hist.sum())
+        for k in range(c0, min(T, c0 + K)):
+            if not ov[k]:
+                continue
+            j = np.arange(c0, k)
+            sel = live[j] & (op_pos[j] >= lo[k]) & (op_pos[j] < op_pos[k])
+            out[k] = at[op_pos[k]] - at[lo[k]] + int(od[j][sel].sum())
+    return out.astype(np.int32)
+
+
+def route_direct(eo, er, vis, oe, oo, orr, od, ov):
+    """The fast branch of one doc that regroups, as the short-doc kernel
+    counts it (every pair at once): visible elements of the op's object
+    at lower rank, plus the deltas of the earlier valid ops of its object
+    at lower rank; invalid ops 0."""
+    T = oe.shape[0]
+    out = np.zeros(T, np.int32)
+    for k in range(T):
+        if not ov[k]:
+            continue
+        base = vis[(eo == oo[k]) & (er < orr[k])].sum()
+        j = np.arange(k)
+        sel = ov[j] & (oo[j] == oo[k]) & (orr[j] < orr[k])
+        out[k] = int(base) + int(od[j][sel].sum())
+    return out
+
+
+def route_model(case, scan, **cut):
+    """The route over [D, ...] inputs: (index [D, T] int32, per-doc flags
+    [D] bool).  A doc that regroups takes `route_direct` when the doc is
+    short (L and T at most 32, the warp kernel) and `route_fast` (with
+    `cut`: K, window) otherwise; any other doc takes `scan(doc's
+    columns)`, the chunk walk (the plain version)."""
+    D, L = case[0].shape
+    T = case[3].shape[1]
+    flags = np.zeros(D, bool)
+    out = np.zeros((D, T), np.int32)
+    for d in range(D):
+        doc = [np.asarray(x[d]) for x in case]
+        flags[d] = route_regroups(*doc)
+        if not flags[d]:
+            out[d] = scan(doc)
+        elif L <= ROUTE_SHORT and T <= ROUTE_SHORT:
+            out[d] = route_direct(*doc)
+        else:
+            out[d] = route_fast(*doc, **cut)
+    return out, flags
+
+
+# -- edge cases of the two step kernels ------------------------------------
+
+def schedule_edge_cases(rs):
+    """(label, (clock, actor, seq, deps, valid)) of the schedule kernel's
+    edge cases: A of 32 and 33 (the two forms' border), a reversed queue
+    that needs C passes, a duplicate in the window of its original, a
+    doc of padding alone beside a full one, and a causal run (the
+    step's config 1) with a late duplicate."""
+    cases = []
+    for A in (32, 33):
+        cases.append(('A=%d' % A, schedule_case(rs, 16, 70, A)))
+    C = 96
+    actor = np.zeros((2, C), np.int32)
+    seq = np.tile(np.arange(C, 0, -1, dtype=np.int32), (2, 1))
+    cases.append(('reversed C=%d' % C, (
+        np.zeros((2, 1), np.int32), actor, seq,
+        np.zeros((2, C, 1), np.int32), np.ones((2, C), bool))))
+    actor = np.array([[0, 1, 0, 2, 1, 0]], np.int32)
+    seq = np.array([[1, 1, 1, 1, 1, 2]], np.int32)
+    deps = np.zeros((1, 6, 3), np.int32)
+    deps[0, 3, 1] = 1
+    cases.append(('duplicate in its original\'s window', (
+        np.zeros((1, 3), np.int32), actor, seq, deps,
+        np.ones((1, 6), bool))))
+    clock, actor, seq, deps, valid = schedule_case(rs, 2, 40, 4)
+    actor[0] = -1
+    valid[0] = False
+    cases.append(('a doc of padding alone', (clock, actor, seq, deps,
+                                             valid)))
+    # config 1's shape: actors taking turns, each change on the others'
+    # latest, delivered in causal order (whole windows in one round), one
+    # of them again as a duplicate
+    C, A = 100, 3
+    actor = (np.arange(C, dtype=np.int32) % A)[None]
+    seq = (np.arange(C, dtype=np.int32) // A + 1)[None]
+    deps = np.zeros((1, C, A), np.int32)
+    for i in range(1, C):
+        deps[0, i] = deps[0, i - 1]
+        deps[0, i, actor[0, i - 1]] = seq[0, i - 1]
+    actor = np.concatenate([actor, actor[:, 40:41]], 1)
+    seq = np.concatenate([seq, seq[:, 40:41]], 1)
+    deps = np.concatenate([deps, deps[:, 40:41]], 1)
+    cases.append(('a causal run and a late duplicate', (
+        np.zeros((1, A), np.int32), actor, seq, deps,
+        np.ones(actor.shape, bool))))
+    return cases
+
+
+def indexes_edge_cases(rs):
+    """(label, case) of the route's edge cases: a doc with no valid op,
+    ops ending exactly at a chunk boundary (T = 128 and 256), short and
+    long docs that regroup beside docs that do not (each doc's branch
+    its own), one long object over many tiles, and a doc whose object
+    starts do not fit one block's shared memory."""
+    cases = []
+    case = list(dominance_indexes_case(rs, 4, 40, 100, 3))
+    case[7] = case[7].copy()
+    case[7][1] = False
+    for k in (3, 4, 5, 6):
+        case[k] = case[k].copy()
+    case[4][1], case[5][1], case[6][1], case[3][1] = -2, -1, 0, -1
+    cases.append(('a doc with no valid op', case))
+    for T in (128, 256):
+        cases.append(('T=%d at a chunk boundary' % T,
+                      dominance_indexes_case(rs, 2, 300, T, 2)))
+    for L, T in ((24, 32), (300, 500)):
+        good = dominance_indexes_case(rs, 6, L, T, 2)
+        bad = dominance_scan_case(rs, 6, L, T, 2)
+        mixed = [np.where((np.arange(6) % 2 == 0).reshape(
+            (6,) + (1,) * (g.ndim - 1)), g, b) for g, b in zip(good, bad)]
+        cases.append(('mixed branches L=%d T=%d' % (L, T), mixed))
+    cases.append(('one object over many tiles',
+                  dominance_indexes_case(rs, 1, 4000, 3000, 1)))
+    cases.append(('object starts past shared memory (L=60000)',
+                  dominance_indexes_case(rs, 1, 60000, 2000, 3)))
+    return cases
