@@ -767,7 +767,14 @@ class NativeDocPool:
         # dirty until the post-emit visibility sync: a batch that fails
         # in between leaves the device visibility unsynced
         entry.dirty = True
-        reg_out, rank, combo = register_ops.resolve_rank_dominate_resident(
+        if self._resident.sp_blocks(dLp, count=True) is not None:
+            # a MeshDocPool(dp=1, sp>1) past the sp fence: the element
+            # axis sharded over the sp blocks (get_entry placed them)
+            resolve = register_ops.resolve_rank_dominate_resident_sharded
+            trace.metric('resident.sharded_dispatch')
+        else:
+            resolve = register_ops.resolve_rank_dominate_resident
+        reg_out, rank, combo = resolve(
             r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'], r['d'],
             r['si'], entry.par, entry.ctr, entry.act, entry.ev, n_now,
             register_ops.upload(oe, self.device),
@@ -1950,6 +1957,10 @@ class ShardedNativePool:
             return 20
         return min(8, os.cpu_count() or 1)
 
+    #: the batch latency series of a whole payload (`MeshDocPool`:
+    #: 'mesh')
+    _batch_label = 'sharded'
+
     def __init__(self, n_shards=None, mode=None, device=None):
         self.mode = self.resolve_mode(mode)
         if n_shards is not None and n_shards < 1:
@@ -2024,7 +2035,8 @@ class ShardedNativePool:
             total += n
             bodies.append(memoryview(r)[off:])
         out = map_header(total) + b''.join(bodies)
-        telemetry.observe_batch('sharded', time.perf_counter() - t_batch,
+        telemetry.observe_batch(self._batch_label,
+                                time.perf_counter() - t_batch,
                                 docs=read_map_header(payload)[0])
         return out
 
@@ -2182,8 +2194,21 @@ class ShardedNativePool:
         return ids, np.concatenate(mats, axis=0)
 
 
-def make_pool(device=None):
-    """The pool factory: a `NativeDocPool(device)`.  The JAX package's
-    factory builds a mesh pool when AMTPU_MESH asks for one; that branch
-    comes with the port's multi-GPU pools."""
-    return NativeDocPool(device)
+def make_pool(device=None, mesh=None):
+    """The pool factory: a `NativeDocPool(device)`, or with `mesh=(dp,
+    sp)` a `MeshDocPool` of dp chips on `device` (the JAX package's
+    factory under AMTPU_MESH=dp[,sp]; a dp of 0 or less means no mesh,
+    as there)."""
+    if mesh is None or mesh[0] <= 0:
+        return NativeDocPool(device)
+    from .mesh_pool import MeshDocPool
+    return MeshDocPool(mesh[0], max(mesh[1], 1), device=device)
+
+
+def _indexed_device(device):
+    """`device` as a torch device with its CUDA index filled in (a tensor
+    on the card reports one)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device

@@ -25,6 +25,17 @@ on (doc id, object sid).  Its consistency contract:
 Every upload goes through a private host copy (`ops.registers.upload`):
 the raw columns are views of C++ arena memory, which a later batch may
 reallocate.
+
+The sp fence: a cache made with `sp_devices` (the pool of a
+`MeshDocPool(dp=1, sp>1)`) keeps an arena whose capacity the sp blocks
+divide and that reaches `sp_min` elements sharded: each column is one
+tensor per sp block, block s holding rows [s * C / n, (s + 1) * C / n) on
+its device, and the pool dispatches it through
+`ops.registers.resolve_rank_dominate_resident_sharded`.  A shorter arena
+stays whole on the pool's device (the single-device resident route).
+`sp_blocks(capacity, count=True)`, at the dispatch, counts each decision
+as `mesh.sp_engaged` or `mesh.sp_fenced`, as the JAX package's
+`_sp_sharding` does.
 """
 
 import bisect
@@ -36,26 +47,81 @@ import torch
 from .. import trace
 from ..ops.registers import upload
 
+#: the element count from which a `MeshDocPool(dp=1, sp>1)` shards a
+#: resident arena over its sp blocks (the JAX package's default
+#: AMTPU_MESH_SP_MIN); below it the arena stays on one device
+SP_CROSSOVER_ELEMS = 1 << 17
+
+
+def sp_block_count(sp):
+    """The sp blocks an arena splits into: the largest power of two at
+    most `sp` (the arena capacities are powers of two), as the JAX
+    package's `_sp_mesh` takes them; 1 means never sharded."""
+    n = 1
+    while n * 2 <= sp:
+        n *= 2
+    return n
+
 
 class ResidentArena:
-    __slots__ = ('capacity', 'n', 'par', 'ctr', 'act', 'ev', 'dirty')
+    __slots__ = ('capacity', 'n', 'par', 'ctr', 'act', 'ev', 'dirty',
+                 'blocks')
 
-    def __init__(self, capacity):
+    def __init__(self, capacity, blocks=None):
         self.capacity = capacity
         self.n = 0
+        # each column is one tensor, or one per sp block when `blocks`
+        # (the blocks' devices) is set
         self.par = None
         self.ctr = None
         self.act = None
         self.ev = None
         self.dirty = False
+        self.blocks = blocks
+
+
+def _write_rows(col, blocks, lo, values, device):
+    """Writes host rows `values` at rows [lo, lo + len(values)) of a
+    column (one tensor, or one per sp block), each block's slice as its
+    own private upload."""
+    if blocks is None:
+        col[lo:lo + len(values)] = upload(np.array(values), device)
+        return
+    Ll = col[0].shape[0]
+    hi = lo + len(values)
+    for s, (part, dev) in enumerate(zip(col, blocks)):
+        a, b = max(lo, s * Ll), min(hi, (s + 1) * Ll)
+        if a < b:
+            part[a - s * Ll:b - s * Ll] = upload(
+                np.array(values[a - lo:b - lo]), dev)
 
 
 class ResidentCache:
-    def __init__(self, device):
+    def __init__(self, device, sp_devices=None, sp_min=SP_CROSSOVER_ELEMS):
         self.device = device
+        #: the sp blocks' devices (a power of two of them), or None: the
+        #: arena is never sharded
+        self.sp_devices = sp_devices
+        self.sp_min = sp_min
         self.entries = {}        # (doc_id bytes, obj_sid) -> ResidentArena
         self.actor_order = []    # sorted actor strings (bytes)
         self.sid_str = {}        # sid -> actor string
+
+    def sp_blocks(self, capacity, count=False):
+        """The devices of the sp blocks an arena of `capacity` rows is
+        sharded over, or None when it stays whole: no sp blocks, a
+        capacity they do not divide, or one below `sp_min` (fenced;
+        counted as `mesh.sp_fenced` when `count`, which only the
+        dispatch passes, as it counts `mesh.sp_engaged`)."""
+        if not self.sp_devices or capacity % len(self.sp_devices):
+            return None
+        if capacity < self.sp_min:
+            if count:
+                trace.metric('mesh.sp_fenced')
+            return None
+        if count:
+            trace.metric('mesh.sp_engaged')
+        return self.sp_devices
 
     def _rank_of_sids(self, L, pool, sids):
         """String-order ranks of actor sids.  Every new sid registers
@@ -113,12 +179,17 @@ class ResidentCache:
                 ranks = self._rank_of_sids(L, pool, act[:n_now].tolist())
         dev = self.device
         if need_full:
-            entry = ResidentArena(capacity)
+            blocks = self.sp_blocks(capacity)
+            entry = ResidentArena(capacity, blocks)
 
             def full(a, dtype, fill):
                 host = np.full(capacity, fill, dtype)
                 host[:n_now] = a[:n_now]
-                return upload(host, dev)
+                if blocks is None:
+                    return upload(host, dev)
+                Ll = capacity // len(blocks)
+                return [upload(np.array(host[s * Ll:(s + 1) * Ll]), d)
+                        for s, d in enumerate(blocks)]
             entry.par = full(par, np.int32, -1)
             entry.ctr = full(ctr, np.int32, 0)
             entry.act = full(ranks, np.int32, 0)
@@ -133,7 +204,8 @@ class ResidentCache:
                                   (entry.act, ranks, np.int32),
                                   (entry.ev, vis, np.float32)):
                 src = a if a is ranks else a[lo:n_now]
-                col[lo:n_now] = upload(np.array(src, dtype), dev)
+                _write_rows(col, entry.blocks, lo, np.asarray(src, dtype),
+                            dev)
             entry.n = n_now
             trace.metric('resident.delta_upload_rows', n_now - lo)
         else:
@@ -157,9 +229,17 @@ class ResidentCache:
         if n_raw < n_now:          # rolled back after dispatch
             entry.dirty = True
             return
-        if touched.size:
+        if touched.size and entry.blocks is None:
             entry.ev.index_copy_(
                 0, upload(touched.astype(np.int64), self.device),
                 upload(vis[touched].astype(np.float32), self.device))
+        elif touched.size:
+            Ll = entry.ev[0].shape[0]
+            for s, (part, d) in enumerate(zip(entry.ev, entry.blocks)):
+                mine = touched[(touched >= s * Ll) & (touched < (s + 1) * Ll)]
+                if mine.size:
+                    part.index_copy_(
+                        0, upload((mine - s * Ll).astype(np.int64), d),
+                        upload(vis[mine].astype(np.float32), d))
         entry.n = n_now
         entry.dirty = False

@@ -58,6 +58,13 @@ KERNELS = {
             ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]),
         'amtpu_torch_route_scratch': (ctypes.c_int64, [ctypes.c_int64] * 3),
     },
+    'dominance_block': {
+        'amtpu_torch_route_block': (ctypes.c_int, [ctypes.c_void_p] * 10 + [
+            ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_void_p]),
+        'amtpu_torch_route_block_scratch': (ctypes.c_int64, [
+            ctypes.c_int64] * 3 + [ctypes.c_int]),
+    },
 }
 
 _loaded = {}

@@ -16,7 +16,15 @@ position (object start + rank), and `query_kernel` rebuilds each op
 chunk's start state over those positions and scans it window by window
 (a warp a doc when the doc fits 32 elements and 32 ops).
 `dominance_indexes_auto` picks by device.
+
+`dominance_indexes_block_cuda` is the card's form of the block mode of
+`list_rank.dominance_indexes` (the JAX function's sequence-parallel
+mode): `csrc/dominance_block.cu`, one thread block per (doc, chunk)
+walking one sp block's elements; `dominance_indexes_block_auto` picks
+by device.
 """
+
+import contextlib
 
 import torch
 
@@ -28,6 +36,10 @@ from .list_rank import dominance_grouped, dominance_indexes
 LAUNCH_METRIC = 'launch.dominance'
 #: launches of the whole-doc route (`csrc/dominance_indexes.cu`)
 INDEXES_METRIC = 'launch.dominance_indexes'
+#: launches of the sp-block route (`csrc/dominance_block.cu`)
+BLOCK_METRIC = 'launch.dominance_block'
+#: counts stay exact in float32 below this (the plain version's sums)
+EXACT_COUNTS = 1 << 24
 #: device -> the route's branch counters (`branch_counts`)
 _BRANCH_COUNTS = {}
 
@@ -176,3 +188,94 @@ def dominance_indexes_auto(elem_obj, elem_rank, vis0, op_elem, op_obj,
                          % elem_obj.device)
     return dominance_indexes(elem_obj, elem_rank, vis0, op_elem, op_obj,
                              op_rank, op_delta, op_valid, chunk=chunk)
+
+
+def on_device(device):
+    """The device context a launch on `device` runs under (CUDA only: a
+    kernel goes to the current stream of the device it is launched on)."""
+    return torch.cuda.device(device) if device.type == 'cuda' \
+        else contextlib.nullcontext()
+
+
+def block_count_bound(L, T, chunk):
+    """Checks, from the shapes alone, that every count of the block route
+    over L elements (one block, or the sum of a doc's blocks) and T ops
+    stays below 2^24, where the float32 sums are exact and the blocks'
+    int32 partial counts sum to the JAX function's psum: a count is at
+    most the elements (visibility 0/1 at the start, each op moving one
+    element by at most 1) plus the T deltas plus a chunk's term."""
+    if L + T + chunk >= EXACT_COUNTS:
+        raise ValueError('dominance counts over %d elements and %d ops '
+                         'may reach 2^24, past exact float32 sums'
+                         % (L, T))
+
+
+def dominance_indexes_block_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj,
+                                 op_rank, op_delta, op_valid, chunk=64,
+                                 l_offset=0):
+    """The card's form of `list_rank.dominance_indexes(..., block=True)`
+    ([D, ...] or one doc), bit-equal to it at `chunk` (1 to 1024): each
+    op's partial count over this sp block, whose first element is global
+    index `l_offset`; the block at l_offset 0 adds the within-chunk term.
+    `csrc/dominance_block.cu`, one launch.  Nothing is read back to the
+    host; the scratch is sized from the shapes."""
+    if elem_obj.device.type != 'cuda':
+        raise ValueError('the dominance block kernel takes CUDA tensors, '
+                         'got %s' % elem_obj.device)
+    if elem_obj.dim() == 1:
+        return dominance_indexes_block_cuda(
+            elem_obj[None], elem_rank[None], vis0[None], op_elem[None],
+            op_obj[None], op_rank[None], op_delta[None], op_valid[None],
+            chunk=chunk, l_offset=l_offset)[0]
+    if not 1 <= chunk <= 1024:
+        raise ValueError('the dominance block kernel takes a chunk in '
+                         '[1, 1024], got %d' % chunk)
+    dev = elem_obj.device
+    D, L = elem_obj.shape
+    T = op_elem.shape[1]
+    block_count_bound(L, T, chunk)
+    elems = [x.to(torch.int32).contiguous() for x in (elem_obj, elem_rank)]
+    vis = vis0.to(torch.float32).contiguous()
+    ops = [x.to(torch.int32).contiguous()
+           for x in (op_elem, op_obj, op_rank, op_delta)]
+    valid = op_valid.to(torch.bool).contiguous()
+    for x in elems + ops + [vis, valid]:
+        if x.device != dev:
+            raise ValueError('dominance inputs must share one device')
+    if any(x.shape != (D, L) for x in elems + [vis]) or \
+            any(x.shape != (D, T) for x in ops + [valid]):
+        raise ValueError('dominance inputs must be [D, L] and [D, T]')
+    index = torch.empty((D, T), dtype=torch.int32, device=dev)
+    if D == 0 or T == 0:
+        return index
+    lib = _build.kernel('dominance_block')
+    scratch = torch.empty(
+        (max(lib.amtpu_torch_route_block_scratch(D, L, T, chunk), 1),),
+        dtype=torch.float32, device=dev)
+    err = lib.amtpu_torch_route_block(
+        elems[0].data_ptr(), elems[1].data_ptr(), vis.data_ptr(),
+        ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+        ops[3].data_ptr(), valid.data_ptr(), index.data_ptr(),
+        scratch.data_ptr(), D, L, T, chunk, int(l_offset),
+        1 if l_offset == 0 else 0, _build.stream_of(index))
+    _build.check(err, 'dominance_block')
+    trace.metric(BLOCK_METRIC)
+    return index
+
+
+def dominance_indexes_block_auto(elem_obj, elem_rank, vis0, op_elem, op_obj,
+                                 op_rank, op_delta, op_valid, chunk=64,
+                                 l_offset=0):
+    """The block kernel on a CUDA device, the plain version's block mode
+    on the CPU; the outputs are bit-equal (at `chunk`)."""
+    if elem_obj.device.type == 'cuda':
+        return dominance_indexes_block_cuda(
+            elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank, op_delta,
+            op_valid, chunk=chunk, l_offset=l_offset)
+    if elem_obj.device.type != 'cpu':
+        raise ValueError('no dominance block route for device %s'
+                         % elem_obj.device)
+    block_count_bound(elem_obj.shape[-1], op_elem.shape[-1], chunk)
+    return dominance_indexes(elem_obj, elem_rank, vis0, op_elem, op_obj,
+                             op_rank, op_delta, op_valid, chunk=chunk,
+                             l_offset=l_offset, block=True)

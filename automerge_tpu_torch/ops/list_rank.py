@@ -178,7 +178,8 @@ def dominance_grouped(vis0, elem_rank, op_elem, op_rank, op_delta, op_valid,
 
 
 def dominance_indexes(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
-                      op_delta, op_valid, chunk=128):
+                      op_delta, op_valid, chunk=128, l_offset=0,
+                      block=False):
     """Per-op list indexes as time-windowed dominance counts, over whole
     docs (the single-device form of `automerge_tpu/ops/list_rank.py::
     dominance_indexes`, vmapped over docs):
@@ -202,13 +203,29 @@ def dominance_indexes(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
     counts are exact below 2^24.  This is the plain version;
     `dominance_kernel.dominance_indexes_auto` runs the card's route.
 
+    Block mode (`block=True`, the JAX function's sequence-parallel mode
+    for one sp block): the element arrays hold the block of the arena
+    whose first element has global index `l_offset`, and op_elem holds
+    global indexes.  The result is each op's partial count over the
+    block: its visible elements of the op's object ranked below, with
+    visibility at the start of the op's chunk, updated only by valid
+    ops whose op_elem - l_offset falls in the block.  The within-chunk
+    term is added by the block with l_offset 0 alone, so the sum of
+    every block's partial counts is the JAX function's psum over sp of
+    the base counts plus that term (exact below 2^24, as the counts).
+    `dominance_kernel.dominance_indexes_block_auto` runs the card's
+    block kernel.
+
     Returns index [D, T] int32 (or [T])."""
     one = elem_obj.dim() == 1
     if one:
         return dominance_indexes(
             elem_obj[None], elem_rank[None], vis0[None], op_elem[None],
             op_obj[None], op_rank[None], op_delta[None], op_valid[None],
-            chunk=chunk)[0]
+            chunk=chunk, l_offset=l_offset, block=block)[0]
+    if not block and l_offset != 0:
+        raise ValueError('l_offset is a block-mode argument')
+    with_corr = not block or l_offset == 0
     D, L = elem_obj.shape
     T = op_elem.shape[1]
     K = chunk
@@ -239,12 +256,14 @@ def dominance_indexes(elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank,
             mask = (elem_obj[blk, :, None] == o[blk, None, :]) & \
                 (elem_rank[blk, :, None] < r[blk, None, :])
             base[blk] = torch.bmm(vis[blk, None, :], mask.to(f32))[:, 0]
-        cross = tri & (o[:, :, None] == o[:, None, :]) & \
-            (r[:, :, None] < r[:, None, :])
-        corr = (cross.to(f32) * d.to(f32)[:, :, None]).sum(dim=1)
-        out[:, c0:c0 + K] = (base + corr).to(torch.int32)
-        in_block = (e >= 0) & (e < L) & v
-        tgt = torch.where(in_block, e, L).long()
+        if with_corr:
+            cross = tri & (o[:, :, None] == o[:, None, :]) & \
+                (r[:, :, None] < r[:, None, :])
+            base = base + (cross.to(f32) * d.to(f32)[:, :, None]).sum(dim=1)
+        out[:, c0:c0 + K] = base.to(torch.int32)
+        le = e - l_offset
+        in_block = (le >= 0) & (le < L) & v
+        tgt = torch.where(in_block, le, L).long()
         upd = torch.zeros((D, L + 1), dtype=f32, device=dev)
         upd.scatter_add_(1, tgt, torch.where(in_block, d, 0).to(f32))
         vis = vis + upd[:, :L]

@@ -369,6 +369,50 @@ def resolve_rank_dominate_resident(group, time, actor, seq, clock_table,
     return reg, rank, combo
 
 
+def resolve_rank_dominate_resident_sharded(
+        group, time, actor, seq, clock_table, clock_idx, is_del, sort_idx,
+        epar, ectr, eact, ev, n_elems, oe, dom_src, ov, n_iters=1,
+        window=WINDOW, chunk=64):
+    """`resolve_rank_dominate_resident` over an arena sharded over sp
+    blocks (`native/resident.py`, the JAX package's
+    `_jit_kernel_sharded`): epar/ectr/eact/ev are lists of one [C / n]
+    tensor per block, each on its block's device; the register columns
+    and oe/dom_src/ov lie on the pool's device.  Registers resolve there;
+    the blocks' parent, counter and actor columns are gathered there for
+    `linearize`; then each block's partial list indexes come from the
+    block kernel on its own device (objects 0, op objects 0 where valid
+    and -2 elsewhere, the block's own slice of the rank, visibility `ev`
+    of the block), and are summed once.  Returns (reg, rank, combo)."""
+    from .dominance_kernel import (block_count_bound,
+                                   dominance_indexes_block_auto, on_device)
+    from .list_rank import linearize
+    reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
+                   sort_idx, None, window)
+    first = group.device
+    par, ctr, act = (torch.cat([b.to(first) for b in col])
+                     for col in (epar, ectr, eact))
+    C = par.shape[0]
+    Ll = C // len(ev)
+    valid = torch.arange(C, device=first) < n_elems
+    rank = linearize(torch.zeros_like(par), par, ctr, act, valid, n_iters)
+    oe1, ds1, ov1 = oe[0], dom_src[0], ov[0]
+    orank, od = dominance_op_inputs(reg, rank, oe1, ds1, ov1)
+    oobj = torch.where(ov1, 0, -2).to(torch.int32)
+    block_count_bound(C, oe1.shape[0], chunk)
+    parts = []
+    for s, evb in enumerate(ev):
+        dev = evb.device
+        with on_device(dev):
+            parts.append(dominance_indexes_block_auto(
+                torch.zeros((Ll,), dtype=torch.int32, device=dev),
+                rank[s * Ll:(s + 1) * Ll].to(dev), evb, oe1.to(dev),
+                oobj.to(dev), orank.to(dev), od.to(dev), ov1.to(dev),
+                chunk=chunk, l_offset=s * Ll).to(first))
+    idx = torch.stack(parts).sum(dim=0, dtype=torch.int32)
+    combo = torch.cat([reg['packed'], idx])
+    return reg, rank, combo
+
+
 # ---------------------------------------------------------------------------
 # the escalation ladder (host half)
 #

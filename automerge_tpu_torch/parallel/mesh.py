@@ -21,8 +21,18 @@ dominance_indexes.cu`).  After the uploads nothing reads the card
 back: the register groups' bound comes from the host's batch.  On the
 CPU the same flattening runs the kernels' plain versions.
 
-The sharded step (`make_mesh`, `build_sharded_step`, `shard_batch` and
-the dp/sp specs) belongs to the multi-GPU slice.
+The sharded step runs the same stages over a dp x sp grid of devices
+(`make_mesh`): documents split over dp, and the element axis of the
+arena columns (eo/ep/ec/ea/ev/vis0) over sp (`shard_batch`, after the
+JAX package's `_BATCH_SPECS`).  `build_sharded_step` gives, per dp
+shard on its first device, the JAX step's shard_map body: the sp blocks
+gathered for `linearize`, the stages above, the frontier as a max over
+the dp shards (`replica.frontier_pmax`), op metadata from the full
+rank, and each sp block's partial list indexes on its own device (the
+block kernel, `dominance_kernel.dominance_indexes_block_auto`, against
+the block's own slice of the rank), summed once.  The collectives are
+explicit copies (`Tensor.to`) and `torch.cat` / `amax` / `sum`: a grid
+cell may repeat a device, as every cell does on a one-card host.
 """
 
 import numpy as np
@@ -31,9 +41,12 @@ import torch
 from .. import trace
 from ..ops import list_rank, registers
 from ..ops.clock_kernel import schedule_queue_auto
-from ..ops.dominance_kernel import dominance_indexes_auto
+from ..ops.dominance_kernel import (block_count_bound,
+                                    dominance_indexes_auto,
+                                    dominance_indexes_block_auto, on_device)
 from ..ops.registers import WINDOW
 from ..ops.registers_kernel import resolve_registers_auto
+from . import replica
 
 #: the batch keys `single_step` reads
 BATCH_KEYS = ('clock', 'ch_actor', 'ch_seq', 'ch_deps', 'ch_valid',
@@ -134,17 +147,14 @@ def upload_batch(batch, device):
             for k in BATCH_KEYS}
 
 
-def step_tensors(b, n_groups, n_linearize_iters, chunk=128):
-    """The step on uploaded tensors `b` (`upload_batch`), each stage
-    issued inside its trace span (`step.schedule`, `step.registers`,
-    `step.linearize`, `step.op_metadata`, `step.route`: the host's issue
-    time).  On the card nothing here reads the device back: every size
-    comes from the shapes or from `n_groups`."""
+def _stages(b, n_groups, n_linearize_iters):
+    """The step's stages before the list indexes, each issued inside its
+    trace span: (order, doc_clock, register outputs, rank, op deltas,
+    op objects, op ranks)."""
     with trace.span('step.schedule'):
         order, doc_clock = schedule_queue_auto(
             b['clock'], b['ch_actor'], b['ch_seq'], b['ch_deps'],
             b['ch_valid'])
-        frontier = doc_clock.max(dim=0).values
     with trace.span('step.registers'):
         reg = _registers(b['rg'], b['rt'], b['ra'], b['rs'], b['rc'],
                          b['rd'], n_groups)
@@ -155,17 +165,35 @@ def step_tensors(b, n_groups, n_linearize_iters, chunk=128):
         od = _op_deltas(reg, b['op_row'], b['op_valid'])
         oobj, orank = _op_metadata(b['eo'], rank, b['op_elem'],
                                    b['op_valid'])
-    with trace.span('step.route'):
-        indexes = dominance_indexes_auto(
-            b['eo'], rank, b['vis0'], b['op_elem'], oobj, orank, od,
-            b['op_valid'], chunk=chunk)
+    return order, doc_clock, reg, rank, od, oobj, orank
+
+
+def _outputs(order, doc_clock, reg, rank, indexes):
+    """The step's per-doc outputs under the JAX step's keys (all but the
+    frontier)."""
     return {
-        'order': order, 'doc_clock': doc_clock, 'frontier': frontier,
+        'order': order, 'doc_clock': doc_clock,
         'alive_after': reg['alive_after'], 'winner': reg['winner'],
         'conflicts': reg['conflicts'],
         'visible_before': reg['visible_before'],
         'overflow': reg['overflow'], 'rank': rank, 'indexes': indexes,
     }
+
+
+def step_tensors(b, n_groups, n_linearize_iters, chunk=128):
+    """The step on uploaded tensors `b` (`upload_batch`), each stage
+    issued inside its trace span (`step.schedule`, `step.registers`,
+    `step.linearize`, `step.op_metadata`, `step.route`: the host's issue
+    time).  On the card nothing here reads the device back: every size
+    comes from the shapes or from `n_groups`."""
+    order, doc_clock, reg, rank, od, oobj, orank = _stages(
+        b, n_groups, n_linearize_iters)
+    with trace.span('step.route'):
+        indexes = dominance_indexes_auto(
+            b['eo'], rank, b['vis0'], b['op_elem'], oobj, orank, od,
+            b['op_valid'], chunk=chunk)
+    return dict(_outputs(order, doc_clock, reg, rank, indexes),
+                frontier=doc_clock.max(dim=0).values)
 
 
 def single_step(batch, n_linearize_iters, chunk=128, device=None):
@@ -186,6 +214,149 @@ def single_step(batch, n_linearize_iters, chunk=128, device=None):
         b = upload_batch(batch, dev)
     return step_tensors(b, n_groups_of(batch), n_linearize_iters,
                         chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# the sharded step over a dp x sp grid of devices
+# ---------------------------------------------------------------------------
+
+#: the batch keys split over sp (the arena columns); every other key is
+#: split over dp only and copied to each sp cell of its dp shard
+SP_KEYS = ('eo', 'ep', 'ec', 'ea', 'ev', 'vis0')
+
+
+class Mesh:
+    """A dp x sp grid of torch devices: `devices[i][s]` holds sp block s
+    of dp shard i.  A device may fill several cells."""
+
+    def __init__(self, devices):
+        self.devices = [list(row) for row in devices]
+        self.dp = len(self.devices)
+        self.sp = len(self.devices[0]) if self.devices else 0
+        if self.dp < 1 or self.sp < 1 or \
+                any(len(row) != self.sp for row in self.devices):
+            raise ValueError('a mesh is a non-empty dp x sp grid')
+
+    @property
+    def shape(self):
+        return {'dp': self.dp, 'sp': self.sp}
+
+    def __repr__(self):
+        return 'Mesh(dp=%d, sp=%d, %s)' % (self.dp, self.sp, self.devices)
+
+
+def make_mesh(dp, sp=1, devices=None):
+    """A dp x sp `Mesh`.  `devices` is one device or a list of them,
+    placed row by row (cell (i, s) takes devices[(i * sp + s) %
+    len(devices)]); None means the card, `cuda:0`, in every cell (and an
+    error when there is no CUDA device)."""
+    if dp < 1 or sp < 1:
+        raise ValueError('mesh axes must be >= 1, got dp=%r sp=%r'
+                         % (dp, sp))
+    from ..native import _indexed_device, _pool_device
+    if devices is None:
+        devices = [None]
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = [_indexed_device(_pool_device(d, 'make_mesh'))
+               for d in devices]
+    if not devices:
+        raise ValueError('make_mesh needs at least one device')
+    return Mesh([[devices[(i * sp + s) % len(devices)] for s in range(sp)]
+                 for i in range(dp)])
+
+
+class ShardedBatch:
+    """A global batch placed on a mesh (`shard_batch`): `cells[i][s]` is
+    the dict of tensors of dp shard i, sp block s, on its device."""
+
+    def __init__(self, mesh, cells, n_groups, shape):
+        self.mesh = mesh
+        self.cells = cells
+        self.n_groups = n_groups
+        #: (D, L, T) of the global batch
+        self.shape = shape
+
+
+def shard_batch(mesh, batch):
+    """Places the global numpy batch (`mesh_encode.encode_batch`,
+    `demo_batch`) on `mesh`: docs split over dp, the arena columns
+    (`SP_KEYS`) over sp, so that block s holds elements [s * Ll, (s + 1)
+    * Ll); every other column is copied to each sp cell of its dp shard.
+    Every array crosses as a private copy (`ops/registers.upload`).  dp
+    must divide the doc count and sp the element count."""
+    D, L = np.shape(batch['eo'])
+    T = np.shape(batch['op_elem'])[1]
+    if D % mesh.dp:
+        raise ValueError('dp=%d must divide the %d docs' % (mesh.dp, D))
+    if L % mesh.sp:
+        raise ValueError('sp=%d must divide the %d elements' % (mesh.sp, L))
+    Dl, Ll = D // mesh.dp, L // mesh.sp
+    cells = []
+    for i, row in enumerate(mesh.devices):
+        docs = slice(i * Dl, (i + 1) * Dl)
+        cells.append([{
+            k: registers.upload(np.array(
+                np.asarray(batch[k])[docs, s * Ll:(s + 1) * Ll]
+                if k in SP_KEYS else np.asarray(batch[k])[docs]), dev)
+            for k in BATCH_KEYS} for s, dev in enumerate(row)])
+    return ShardedBatch(mesh, cells, n_groups_of(batch), (D, L, T))
+
+
+def build_sharded_step(mesh, n_linearize_iters, chunk=64):
+    """The resolver step over `mesh`, the counterpart of the JAX
+    package's `build_sharded_step`.  Returns a callable taking a
+    `shard_batch` of this mesh and returning the JAX step's outputs as
+    global [D, ...] tensors in dp order on the grid's first device:
+    order [D, C], doc_clock [D, A], frontier [A] (the max over every doc
+    of every dp shard), alive_after / winner / visible_before / overflow
+    [D, T], conflicts [D, T, WINDOW], rank [D, L] and indexes [D, Tops].
+
+    Per dp shard, on its first device: the sp blocks of the arena
+    columns gathered for `linearize`, the single step's stages, and the
+    op metadata from the full rank; then each sp block's partial indexes
+    on the block's device against its own slice of the rank (op chunks
+    of `chunk`), summed once.  Nothing reads the card back."""
+
+    def step(sb):
+        if (sb.mesh.dp, sb.mesh.sp) != (mesh.dp, mesh.sp):
+            raise ValueError('the batch was sharded over %r, the step '
+                             'runs over %r' % (sb.mesh, mesh))
+        _D, L, T = sb.shape
+        block_count_bound(L, T, chunk)
+        outs, local_clocks = [], []
+        for i, row in enumerate(mesh.devices):
+            cells = sb.cells[i]
+            first = row[0]
+            with on_device(first):
+                b = dict(cells[0])
+                if mesh.sp > 1:
+                    with trace.span('step.gather'):
+                        for k in SP_KEYS:
+                            b[k] = torch.cat([c[k].to(first) for c in cells],
+                                             dim=1)
+                order, doc_clock, reg, rank, od, oobj, orank = _stages(
+                    b, sb.n_groups, n_linearize_iters)
+                local_clocks.append(torch.amax(doc_clock, dim=0))
+                Ll = cells[0]['eo'].shape[1]
+                with trace.span('step.route'):
+                    parts = []
+                    for s, (c, dev) in enumerate(zip(cells, row)):
+                        with on_device(dev):
+                            parts.append(dominance_indexes_block_auto(
+                                c['eo'], rank[:, s * Ll:(s + 1) * Ll].to(dev),
+                                c['vis0'], c['op_elem'], oobj.to(dev),
+                                orank.to(dev), od.to(dev), c['op_valid'],
+                                chunk=chunk, l_offset=s * Ll).to(first))
+                    indexes = parts[0] if len(parts) == 1 else \
+                        torch.stack(parts).sum(dim=0, dtype=torch.int32)
+            outs.append(_outputs(order, doc_clock, reg, rank, indexes))
+        top = mesh.devices[0][0]
+        out = {k: torch.cat([o[k].to(top) for o in outs]) for k in outs[0]}
+        out['frontier'] = replica.frontier_pmax(local_clocks, mesh)
+        return out
+
+    return step
 
 
 def demo_batch(n_docs=8, n_changes=4, n_actors=4, n_regs=8, n_elems=8,

@@ -10,8 +10,9 @@ clock does not cover.  For R replicas of a doc, with their clocks as an
   at_frontier = local clock == frontier -- who can ship each stream
 
 `batched_plan` computes all three for a whole DocSet, [D, R, A], in one
-pass on the tensor's device.  The frontier across devices (a max over a
-process group) belongs to the multi-GPU slice.
+pass on the tensor's device.  `frontier_pmax` is the frontier across the
+dp shards of a device grid (`parallel/mesh.make_mesh`), the JAX
+package's `lax.pmax` over the dp axis.
 """
 
 import torch
@@ -20,6 +21,16 @@ import torch
 def clock_union(clocks_axis0):
     """Elementwise max of clocks stacked on axis 0."""
     return torch.amax(clocks_axis0, dim=0)
+
+
+def frontier_pmax(local_clocks, mesh):
+    """The elementwise max of the dp shards' [A] clocks (one tensor per
+    shard, each on its shard's device), on the grid's first device.  The
+    collective is explicit copies and one `amax`: a grid cell may repeat
+    a device, which NCCL and `torch.cuda.comm` refuse."""
+    first = mesh.devices[0][0]
+    return torch.amax(torch.stack([c.to(first) for c in local_clocks]),
+                      dim=0)
 
 
 def replica_deficits(clocks):

@@ -82,7 +82,8 @@ Responses: {"id": ..., "result": ...} or {"id": ..., "error": msg,
 "errorType": "AutomergeError"|"RangeError"|"TypeError"}.
 
 Run: python -m automerge_tpu_torch.sidecar.server [--socket PATH]
-         [--msgpack] [--device {cuda,cpu}] [--metrics-port N]
+         [--msgpack] [--device {cuda,cpu}] [--mesh dp[,sp]]
+         [--metrics-port N]
 """
 
 import argparse
@@ -103,12 +104,13 @@ from ..telemetry import httpd as telemetry_httpd
 class SidecarBackend:
     """Protocol command dispatch over one NativeDocPool."""
 
-    def __init__(self, pool=None, device=None):
+    def __init__(self, pool=None, device=None, mesh=None):
         from ..native import load_runtime, make_pool
         if pool is None:
-            # CUDA unless `device` says otherwise; NativeDocPool raises
-            # when there is no card and no device='cpu'
-            pool = make_pool(device)
+            # CUDA unless `device` says otherwise (the pools raise when
+            # there is no card and no device='cpu'); `mesh=(dp, sp)`
+            # serves a MeshDocPool
+            pool = make_pool(device, mesh=mesh)
         self.pool = pool
         # the C++ core and the kernels build here, on the thread that
         # made the pool: the gateway's dispatcher thread launches them,
@@ -346,6 +348,14 @@ def serve_stream(rfile, wfile, use_msgpack=False, backend=None):
             wfile.flush()
 
 
+def _mesh_arg(text):
+    from ..native.mesh_pool import parse_mesh
+    try:
+        return parse_mesh(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--socket', help='serve on a unix socket path '
@@ -358,6 +368,11 @@ def main(argv=None):
                          'server exits non-zero when there is no CUDA '
                          'device) or the plain PyTorch versions on the '
                          'CPU')
+    ap.add_argument('--mesh', type=_mesh_arg, default=None,
+                    metavar='dp[,sp]',
+                    help='serve a MeshDocPool: docs over dp chips on the '
+                         'device(s), a resident long list over sp blocks '
+                         'when dp is 1 (default: one pool)')
     ap.add_argument('--metrics-port', type=int, default=-1,
                     help='serve Prometheus /metrics + /healthz on this '
                          'HTTP port (0 = ephemeral; default: off)')
@@ -399,7 +414,7 @@ def main(argv=None):
     coldstore.STORAGE_DURABLE = args.durable
     try:
         # the pool and its runtime come up before any socket binds
-        backend = SidecarBackend(device=args.device)
+        backend = SidecarBackend(device=args.device, mesh=args.mesh)
     except RuntimeError as e:
         print('sidecar: %s' % e, file=sys.stderr)
         sys.exit(2)

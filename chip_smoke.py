@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
-port's C++ host runtime and its five CUDA kernel sources from this
+port's C++ host runtime and its six CUDA kernel sources from this
 checkout (registers K1, dominance K2, members K3, the causal schedule
-`clock.cu`, the whole-doc dominance route `dominance_indexes.cu`), then:
+`clock.cu`, the whole-doc dominance route `dominance_indexes.cu`, the
+sp-block route `dominance_block.cu`), then:
 
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
@@ -105,7 +106,10 @@ checkout (registers K1, dominance K2, members K3, the causal schedule
      route branches in one batch, object starts past shared memory),
      the route's branch counters against the model's per-doc flags, and
      timed as a CUDA graph of their launches (device time alone) beside
-     the wrapper's back-to-back calls.
+     the wrapper's back-to-back calls.  The sp-block kernel (since PR 13)
+     is held to the plain block mode at every call of phase 16 and at
+     the route's seeded random and chunk-dependent cases split into sp =
+     2 and 4 blocks, whose sum must equal the whole-doc route's output.
 
   12. serves the Backend protocol from the card (run before the checks of
      phase 11, which hold its kernel calls bit-equal too): (a) 32
@@ -199,6 +203,22 @@ checkout (registers K1, dominance K2, members K3, the causal schedule
      same lane on the port's scalar oracle; (b) and (c) must launch K1
      and K2, (c) K3 too; (b) logs its wall and the median and p99 round
      trip of one change.
+  16. drives the multi-device path with every dp x sp cell on `cuda:0`
+     (after phase 15, before the checks of phase 11, which hold its
+     block-kernel calls too; `mesh_phase`): (a) the port's
+     `dryrun_multichip(4)`: text, map and table workloads through the
+     sharded step at dp = 2 x sp = 2, then `scaling_workload(2048)` at
+     (dp, sp) = (1, 1), (2, 1), (4, 1), (2, 2), each verified against a
+     card engine and bit-equal within its sp encoding (median of 3), and
+     the (2, 2) step after its uploads under the sync-debug mode 'error';
+     (b) config 1 through the sharded step at sp = 1, 2, 4, equal to
+     `single_step`; (c) `MeshDocPool(dp)` at dp = 1, 2, 4 on config 3,
+     every patch equal to phase 1's; (d) the sp-crossover probe, texts of
+     8,192 to 262,144 characters in `MeshDocPool(1, 2)` with `sp_min` 16
+     and the default, patches equal across the arms; (e)
+     `sync/distributed.launch(2)`, the workers' pools on `cuda:0`, gossip
+     over gloo.  Phase 3's hostile-staging lane also runs a
+     `MeshDocPool(2)` and the dp = 2 x sp = 2 sharded step.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -735,6 +755,102 @@ def step_cases(torch, np, card):
             'fast branch (the model\'s flags) on %s'
             % (label, fast, case[0].shape[0], card))
     return err_s, err_i
+
+
+def check_block(torch, card, label, args, kw, timed=True):
+    """Bit-equality of the sp-block kernel (`csrc/dominance_block.cu`)
+    with the block mode of the plain `list_rank.dominance_indexes` on the
+    card, at the call's chunk and l_offset, and (`timed`) the wrapper's
+    time (`ms`: back-to-back calls), its device time alone (a CUDA graph
+    of its launches) and the plain version's; returns (max abs error,
+    ms, plain ms, bound ms, bound by, graph ms), the last five None when
+    not timed.  The bound counts, as `indexes_bound` does, the regrouped
+    form's work over the block's elements."""
+    from automerge_tpu_torch.ops import dominance_kernel, list_rank
+    kw = {'chunk': kw.get('chunk', 64), 'l_offset': kw.get('l_offset', 0)}
+    got = dominance_kernel.dominance_indexes_block_cuda(*args, **kw)
+    want = list_rank.dominance_indexes(*args, block=True, **kw)
+    bad = int((got != want).sum())
+    err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+    if bad:
+        raise AssertionError('dominance_block %s: %d mismatches'
+                             % (label, bad))
+    if not timed:
+        return err, None, None, None, None, None
+    # a call of tens of ms (the long text's build) is timed in fewer runs
+    heavy = args[0].numel() * args[3].shape[-1] > (1 << 28)
+    reps, rounds = (2, 3) if heavy else (20, 5)
+    ms = device_ms(torch, lambda: dominance_kernel
+                   .dominance_indexes_block_cuda(*args, **kw), reps, rounds)
+    g_ms = device_ms(torch, lambda: dominance_kernel
+                     .dominance_indexes_block_cuda(*args, **kw), reps,
+                     rounds, graph=True)
+    plain_ms = device_ms(torch, lambda: list_rank.dominance_indexes(
+        *args, block=True, **kw), reps=1 if heavy else 2,
+        rounds=1 if heavy else 3)
+    bound, by = indexes_bound(args if args[0].dim() == 2
+                              else [a[None] for a in args])
+    D = args[0].shape[0] if args[0].dim() == 2 else 1
+    log('dominance_block %s D=%d Ll=%d T=%d chunk=%d l_offset=%d: '
+        'mismatches 0, wrapper %.4f ms, kernel as a CUDA graph %.4f ms, '
+        'plain %.4f ms, bound %.3g ms (%s) on %s' % (
+            label, D, args[0].shape[-1], args[3].shape[-1], kw['chunk'],
+            kw['l_offset'], ms, g_ms, plain_ms, bound, by, card))
+    return err, ms, plain_ms, bound, by, g_ms
+
+
+def block_cases(torch, np, card):
+    """The sp-block kernel at the seeded random and chunk-dependent cases
+    of the whole-doc route (`torch_step_cases`), each doc's elements split
+    into sp = 2 and 4 blocks: every block bit-equal to the plain block
+    mode at chunks 64 and 128, and the blocks' sum at chunk 128 bit-equal
+    to the whole-doc route's output (`csrc/dominance_indexes.cu`, the
+    chunk-scan branch on the chunk-dependent cases).  Returns the largest
+    error (0: bit-equal)."""
+    from automerge_tpu_torch.ops import dominance_kernel
+    from torch_step_cases import (INDEXES_SHAPES, SCAN_SHAPES,
+                                  dominance_indexes_case,
+                                  dominance_scan_case)
+    dev = torch.device('cuda')
+    err = n_calls = 0
+    for make, shapes in ((dominance_indexes_case, INDEXES_SHAPES),
+                         (dominance_scan_case, SCAN_SHAPES)):
+        for shape in shapes:
+            case = [torch.from_numpy(np.asarray(x)).to(dev) for x in make(
+                np.random.RandomState(sum(shape)), *shape)]
+            route = dominance_kernel.dominance_indexes_cuda(*case,
+                                                            chunk=128)
+            L = case[0].shape[1]
+            for sp in (2, 4):
+                Ll = L // sp
+                if Ll * sp != L:
+                    raise AssertionError('block case L=%d: sp=%d' % (L, sp))
+                for chunk in (64, 128):
+                    parts = []
+                    for s in range(sp):
+                        b = slice(s * Ll, (s + 1) * Ll)
+                        args = [case[0][:, b], case[1][:, b],
+                                case[2][:, b]] + case[3:]
+                        kw = {'chunk': chunk, 'l_offset': s * Ll}
+                        err = max(err, check_block(
+                            torch, card, '%s sp=%d' % (make.__name__, sp),
+                            args, kw, timed=False)[0])
+                        n_calls += 1
+                        parts.append(dominance_kernel
+                                     .dominance_indexes_block_cuda(*args,
+                                                                   **kw))
+                    if chunk == 128 and not bool(
+                            (torch.stack(parts).sum(0, dtype=torch.int32)
+                             == route).all()):
+                        raise AssertionError(
+                            'dominance_block %s %s sp=%d: the blocks\' sum '
+                            'differs from the whole-doc route' % (
+                                make.__name__, shape, sp))
+    log('dominance_block: %d seeded calls (random and chunk-dependent cases '
+        'split at sp 2 and 4, chunks 64 and 128) bit-equal to the plain '
+        'block mode, each case\'s blocks summed bit-equal to the whole-doc '
+        'route on %s' % (n_calls, card))
+    return err
 
 
 def member_cases(torch, np, card):
@@ -2875,6 +2991,199 @@ def engine_phase(torch, card, workloads, drive, K1, K2, K3, KS, KI,
     return report
 
 
+#: phase 16 (d): the sp-crossover probe's text sizes (characters) and the
+#: keystrokes a size (the first is not timed)
+SP_SIZES = (8192, 32768, 131072, 262144)
+SP_EDITS = 6
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
+               out_gpu3):
+    """Phase 16: the multi-device path, every dp x sp cell on `cuda:0`.
+    (a) `dryrun.dryrun_multichip(4)`: the text, map and table workloads
+    through the sharded step at dp = 2 x sp = 2, verified against a card
+    engine (the text one bit-equal to the single step), then the step on
+    `scaling_workload(2048)` at (dp, sp) = (1, 1), (2, 1), (4, 1) and (2,
+    2), each verified and bit-equal to the first run of its sp encoding,
+    the median of 3 recorded; then the (2, 2) step after its uploads once
+    under the sync-debug mode 'error', every output equal to `single_step`
+    on the same batch.  (b) config 1 through the sharded step at dp = 1,
+    sp = 1, 2 and 4: every output equal to `single_step`'s, the median of
+    3.  (c) `MeshDocPool(dp)` at dp = 1, 2 and 4 on config 3: every doc's
+    patch equal to phase 1's one-pool bytes; the wall and the `mesh.*`
+    counters.  (d) the sp-crossover probe (`bench.py::
+    run_multichip_sp_child`): a text of each of SP_SIZES characters built
+    in `MeshDocPool(1, 2)`, then SP_EDITS keystrokes, resident, with
+    `sp_min` 16 (the sharded arm: every resident batch runs the block
+    kernel on two sp blocks) and the default (131,072: the texts below it
+    fenced, K2 on one device, the others sharded); every batch's bytes
+    and the final patches equal across the arms; the median edit ms (the
+    first keystroke not counted), `mesh.sp_engaged` and
+    `mesh.sp_fenced`.  (e) `sync/distributed.
+    launch(2)`: two worker processes, each with two replica pools on
+    `cuda:0`, gossip over gloo; every replica of every process equal to
+    the port oracle's tree (the workers check); rounds and walls.
+    Returns the phase's report."""
+    import msgpack
+
+    from automerge_tpu_torch import dryrun, trace
+    from automerge_tpu_torch.native.mesh_pool import MeshDocPool
+    from automerge_tpu_torch.ops import list_rank
+    from automerge_tpu_torch.parallel import mesh, mesh_encode
+    from automerge_tpu_torch.sync import distributed
+    t_phase = time.perf_counter()
+    report = {}
+
+    # -- (a) the dryrun: three workloads, then the scaling table ----------
+    table, wall_a, _ = drive('mesh (a) dryrun gpu', lambda: dryrun
+                             .dryrun_multichip(4),
+                             need=(KS, K1, KB), waves=None)
+    report['a_scaling'] = table
+    big = mesh_encode.scaling_workload(dryrun.SCALING_DOCS)
+    batch, meta = mesh_encode.encode_batch(big, sp=2)
+    n_iters = list_rank.ceil_log2(max(meta['max_arena'], 1)) + 1
+    grid = mesh.make_mesh(2, 2)
+    step = mesh.build_sharded_step(grid, n_iters, chunk=16)
+    sb = mesh.shard_batch(grid, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = step(sb)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_equal('mesh (a) dp=2 sp=2 (sync-debug error mode)', out,
+               mesh.single_step(batch, n_iters))
+    log('mesh (a): dryrun %.3f s; scaling 2048 step medians %s; the dp=2 '
+        'x sp=2 step after its uploads read nothing back (sync-debug error '
+        'mode) and equals single_step on every key, on %s' % (
+            wall_a, ['dp=%d sp=%d %.4f s' % (r['dp'], r['sp'], r['median_s'])
+                     for r in table], card))
+
+    # -- (b) config 1 through the sharded step at dp = 1 ------------------
+    wl1 = workloads.build_config_1(random.Random(7))
+    report['b_config1'] = {}
+    for sp in (1, 2, 4):
+        batch1, meta1 = mesh_encode.encode_batch(wl1, sp=sp)
+        it1 = list_rank.ceil_log2(max(meta1['max_arena'], 1)) + 1
+        g1 = mesh.make_mesh(1, sp)
+        step1 = mesh.build_sharded_step(g1, it1)
+        sb1 = mesh.shard_batch(g1, batch1)
+        out1, first, m1 = drive('mesh (b) config1 sp=%d gpu' % sp,
+                                lambda: step1(sb1), need=(KS, K1, KB),
+                                waves=None)
+        step_equal('mesh (b) config1 sp=%d' % sp, out1,
+                   mesh.single_step(batch1, it1))
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            step1(sb1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        report['b_config1'][sp] = {'first_s': first, 'runs_s': walls,
+                                   'median_s': _median(walls),
+                                   'block_launches': m1.get(KB, 0)}
+        log('mesh (b) config1 sp=%d: %d elements a block, first %.4f s, '
+            'median of 3 %.4f s, equal to single_step on every key on %s'
+            % (sp, batch1['eo'].shape[1] // sp, first, _median(walls), card))
+
+    # -- (c) the mesh pool on config 3 -------------------------------------
+    want3 = patch_slices(out_gpu3)
+    report['c_config3'] = {}
+    for dp in (1, 2, 4):
+        out_m, wall_m, mm = drive('mesh (c) config3 dp=%d gpu' % dp,
+                                  lambda: MeshDocPool(dp).apply_batch_bytes(
+                                      payload3), need=(K1, K2), waves=None)
+        if patch_slices(out_m) != want3:
+            raise AssertionError('mesh (c) dp=%d: patches differ from one '
+                                 'card pool\'s' % dp)
+        counters = {k: v for k, v in mm.items() if k.startswith('mesh.')}
+        report['c_config3'][dp] = {'wall_s': wall_m, 'mesh': counters}
+        log('mesh (c) config3 dp=%d: %.3f s, every patch equal to one card '
+            'pool\'s; %s on %s' % (dp, wall_m, counters, card))
+
+    # -- (d) the sp-crossover probe ----------------------------------------
+    report['d_sp_probe'] = {}
+    results = {}
+    for arm, sp_min in (('sp_min 16', 16), ('default', None)):
+        kw = {} if sp_min is None else {'sp_min': sp_min}
+        pool = MeshDocPool(1, 2, **kw)
+        rows, outs = {}, []
+
+        def probe(pool=pool, rows=rows, outs=outs):
+            for n in SP_SIZES:
+                doc = 'sp-%d' % n
+                outs.append(pool.apply_batch_bytes(msgpack.packb(
+                    {doc: workloads.long_text_doc(n)}, use_bin_type=True)))
+                times = []
+                for kind, body, _single in workloads.keystroke_edits(
+                        n, n_keys=SP_EDITS)[:SP_EDITS]:
+                    assert kind == 'batch'
+                    payload = msgpack.packb({doc: body}, use_bin_type=True)
+                    t = time.perf_counter()
+                    outs.append(pool.apply_batch_bytes(payload))
+                    times.append(time.perf_counter() - t)
+                rows[n] = _median(times[1:]) * 1e3
+                outs.append(pool.get_patch(doc))
+        _, wall_d, md = drive('mesh (d) sp probe %s gpu' % arm, probe,
+                              need=(KB,) if sp_min else (K2, KB),
+                              waves=None)
+        results[arm] = outs
+        report['d_sp_probe'][arm] = {
+            'edit_ms': rows, 'wall_s': wall_d,
+            'sp_engaged': md.get('mesh.sp_engaged', 0),
+            'sp_fenced': md.get('mesh.sp_fenced', 0),
+            'resident_dispatches': md.get('resident.dispatches', 0)}
+        log('mesh (d) sp probe, %s arm: median keystroke ms %s, sp_engaged '
+            '%d, sp_fenced %d, resident dispatches %d, %.1f s on %s' % (
+                arm, {k: round(v, 4) for k, v in rows.items()},
+                md.get('mesh.sp_engaged', 0), md.get('mesh.sp_fenced', 0),
+                md.get('resident.dispatches', 0), wall_d, card))
+    if results['sp_min 16'] != results['default']:
+        raise AssertionError('mesh (d): the two arms\' patches differ')
+    d = report['d_sp_probe']
+    lo, hi = d['sp_min 16'], d['default']
+    if lo['sp_fenced'] or lo['sp_engaged'] != lo['resident_dispatches'] or \
+            not hi['sp_fenced'] or not hi['sp_engaged'] or \
+            hi['sp_engaged'] + hi['sp_fenced'] != hi['resident_dispatches'] \
+            or lo['resident_dispatches'] != hi['resident_dispatches']:
+        raise AssertionError('mesh (d): fence counters %s' % d)
+
+    # -- (e) two processes over gloo, replicas on the card ----------------
+    t = time.perf_counter()
+    outs_e = distributed.launch(2, timeout=300)
+    wall_e = time.perf_counter() - t
+    rounds, views = [], []
+    for pid, o in enumerate(outs_e):
+        m = re.search(r'DISTRIBUTED-OK pid=%d rounds=\[([0-9, ]+)\] '
+                      r'wall=([0-9.]+)' % pid, o)
+        v = re.search(r'DISTRIBUTED-TREES pid=%d (.*)$' % pid, o, re.M)
+        if not m or not v:
+            raise AssertionError('mesh (e): worker %d did not report:\n%s'
+                                 % (pid, o[-2000:]))
+        rounds.append(([int(x) for x in m.group(1).split(',')],
+                       float(m.group(2))))
+        views.append(json.loads(v.group(1)))
+    if any(r[-1] != 0 or not sum(r) for r, _w in rounds) or \
+            any(v != views[0] for v in views):
+        raise AssertionError('mesh (e): rounds %s or trees differ' % rounds)
+    report['e_distributed'] = {'rounds': [r for r, _w in rounds],
+                               'catch_up_s': [w for _r, w in rounds],
+                               'launch_s': wall_e}
+    log('mesh (e) launch(2): rounds %s, catch-up %s s in the workers, %.2f '
+        's with the processes\' start; every replica of every process '
+        'equal to the oracle\'s tree on %s' % (
+            [r for r, _w in rounds], [w for _r, w in rounds], wall_e, card))
+    report['phase_s'] = time.perf_counter() - t_phase
+    log('mesh phase: %.1f s wall on %s' % (report['phase_s'], card))
+    log('mesh: ' + json.dumps(report))
+    return report
+
+
 def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
     """A pipelined batch of 256 docs on the card (254 Text docs of config
     3 and two cut config-5 docs, whose register groups climb the
@@ -2947,6 +3256,35 @@ def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
     log('hostile staging: the card engine (256 docs, %d tier rows) and the '
         'step (64 docs) with %d host arrays overwritten after upload, equal '
         'to the CPU engine and step on %s' % (tiers, n[0] - n_pool, card))
+    # the mesh pool's chips (each on its own stream) and the sharded
+    # step's cells, on the same batches
+    from automerge_tpu_torch.native.mesh_pool import MeshDocPool
+    grid, cpu_grid = mesh.make_mesh(2, 2), mesh.make_mesh(2, 2, ['cpu'])
+    sp_batch, sp_meta = mesh_encode.encode_batch(wl, sp=2)
+    sp_iters = list_rank.ceil_log2(max(sp_meta['max_arena'], 1)) + 1
+    n_step = n[0]
+    R.upload = hostile
+    try:
+        got_m = MeshDocPool(2).apply_batch_bytes(payload)
+        sharded = mesh.build_sharded_step(grid, sp_iters)(
+            mesh.shard_batch(grid, sp_batch))
+        torch.cuda.synchronize()
+    finally:
+        R.upload = orig
+    if patch_slices(got_m) != patch_slices(
+            NativeDocPool(device='cpu').apply_batch_bytes(payload)):
+        raise AssertionError('hostile staging: the mesh pool\'s patches '
+                             'differ from the CPU pool\'s')
+    step_equal('hostile staging sharded step', sharded,
+               mesh.build_sharded_step(cpu_grid, sp_iters)(
+                   mesh.shard_batch(cpu_grid, sp_batch)))
+    if n[0] - n_step < 4 * len(mesh.BATCH_KEYS):
+        raise AssertionError('hostile staging: the mesh pool and sharded '
+                             'step uploaded %d arrays' % (n[0] - n_step))
+    log('hostile staging: a MeshDocPool(2) (256 docs) and the dp=2 x sp=2 '
+        'sharded step (64 docs) with %d host arrays overwritten after '
+        'upload, equal to the CPU pool and sharded step on %s'
+        % (n[0] - n_step, card))
 
 
 def main():
@@ -3014,7 +3352,7 @@ def run(torch):
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
     captured = {'registers': [], 'dominance': [], 'members': [],
-                'schedule': [], 'indexes': []}
+                'schedule': [], 'indexes': [], 'block': []}
     # captured calls by the thread that made them (the fleet phase tells
     # a read replica's pool from its upstream gateway's in one process)
     by_thread = {}
@@ -3040,11 +3378,13 @@ def run(torch):
     capture(members_kernel, 'resolve_registers_members_cuda', 'members')
     capture(clock_kernel, 'schedule_queue_cuda', 'schedule')
     capture(dominance_kernel, 'dominance_indexes_cuda', 'indexes')
+    capture(dominance_kernel, 'dominance_indexes_block_cuda', 'block')
 
     K1, K2 = registers_kernel.LAUNCH_METRIC, dominance_kernel.LAUNCH_METRIC
     K3 = members_kernel.LAUNCH_METRIC
     KS, KI = clock_kernel.LAUNCH_METRIC, dominance_kernel.INDEXES_METRIC
-    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0}
+    KB = dominance_kernel.BLOCK_METRIC
+    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0, KB: 0}
     by_path = {k: {} for k in launches}
 
     def drive(label, fn, need, oracle=0, waves=0):
@@ -3323,6 +3663,11 @@ def run(torch):
     # phase 11, which hold their kernel calls too) ----------------------
     frontend_phase(card, drive, K1, K2, K3, note_remote)
 
+    # -- phase 16: the multi-device path, every cell on cuda:0 (before
+    # the checks of phase 11, which hold its kernel calls too) ----------
+    mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
+               out_gpu)
+
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:
         setattr(mod, name, orig)
@@ -3355,7 +3700,8 @@ def run(torch):
     err3 = member_cases(torch, np, card)
     t_cases = time.perf_counter()
     err_s, err_i = step_cases(torch, np, card)
-    log('schedule and route seeded and edge cases: %.1f s'
+    err_b = block_cases(torch, np, card)
+    log('schedule, route and block seeded and edge cases: %.1f s'
         % (time.perf_counter() - t_cases))
 
     # at the main paths' own inputs (every call of the driven paths,
@@ -3551,13 +3897,56 @@ def run(torch):
             'launches_by_path': by_path[metric], 'timed_path': path,
             'library_ms': None, 'paths': seen, 'max_abs_err': err},
             **timing))
-    log('schedule and route main-path checks and timing: %.1f s'
+    # the sp-block kernel at phase 16's calls: every call held bit-equal;
+    # of each path the largest call timed, and the last (in the sp probe,
+    # a keystroke) too; the row's times are the largest timed call's
+    def block_size(c):
+        return c[1][0].numel() * c[1][3].shape[-1]
+    timed_calls = {}
+    for i, c in enumerate(captured['block']):
+        big = timed_calls.setdefault(c[0], {'largest': i})
+        if block_size(c) > block_size(captured['block'][big['largest']]):
+            big['largest'] = i
+        big['last'] = i
+    seen = {}
+    best = None
+    for i, (path, args, kw) in enumerate(captured['block']):
+        which = [k for k, j in sorted(timed_calls[path].items()) if j == i]
+        timed = bool(which)
+        e, ms, plain_ms, bound, by, g_ms = check_block(
+            torch, card, 'main path %s' % path, args, kw, timed=timed)
+        err_b = max(err_b, e)
+        if not timed:
+            continue
+        label = path if 'largest' in which else path + ' last call'
+        seen[label] = {'shape': 'D=%d Ll=%d T=%d chunk=%d' % (
+            args[0].shape[0] if args[0].dim() == 2 else 1,
+            args[0].shape[-1], args[3].shape[-1], kw.get('chunk', 64)),
+            'ms': ms, 'graph_ms': g_ms,
+            'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by}
+        if best is None or block_size((path, args)) > best[0]:
+            best = (block_size((path, args)), label, seen[label])
+    if best is None:
+        raise AssertionError('dominance_block: no main-path call was '
+                             'captured')
+    log('dominance_block: %d main-path calls bit-equal to the plain block '
+        'mode on %s' % (len(captured['block']), card))
+    rows['dominance_block'] = (0, dict({
+        'name': 'dominance_block', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/csrc/dominance_block.cu',
+        'replaces': 'automerge_tpu/ops/list_rank.py:195 (sp mode: '
+                    'axis_name, l_offset; XLA, no Pallas kernel)',
+        'launches': launches[KB], 'launches_by_path': by_path[KB],
+        'timed_path': best[1], 'library_ms': None, 'paths': seen,
+        'max_abs_err': err_b}, **best[2]))
+    log('schedule, route and block main-path checks and timing: %.1f s'
         % (time.perf_counter() - t_step_kernels))
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
     rows['members'][1]['max_abs_err'] = err3
     return [rows[k][1] for k in ('registers', 'dominance', 'members',
-                                 'schedule', 'dominance_indexes')]
+                                 'schedule', 'dominance_indexes',
+                                 'dominance_block')]
 
 
 if __name__ == '__main__':

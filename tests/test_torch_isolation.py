@@ -129,9 +129,10 @@ LATCH_DEFAULTS = {'AMTPU_RESIDENT': None, 'AMTPU_RESIDENT_MIN': '16384',
                   'AMTPU_RESCLK_MAX_ACTORS': '512',
                   'AMTPU_RESCLK_MAX_ROWS': '1048576',
                   'AMTPU_TRIVIAL_HOST': '1', 'AMTPU_MESH': None}
-#: the first runs its latched scenario in a subprocess of its own; this
-#: file holds the scan's table and probe, and sets nothing
-LATCH_EXEMPT = ('test_torch_resident.py', 'test_torch_isolation.py')
+#: the first two run their latched scenarios in subprocesses of their
+#: own; this file holds the scan's table and probe, and sets nothing
+LATCH_EXEMPT = ('test_torch_resident.py', 'test_torch_mesh_fence.py',
+                'test_torch_isolation.py')
 PORT_TESTS = sorted(glob.glob(os.path.join(ROOT, 'tests',
                                            'test_torch_*.py')))
 
