@@ -59,11 +59,11 @@ KERNELS = {
         'amtpu_torch_route_scratch': (ctypes.c_int64, [ctypes.c_int64] * 3),
     },
     'dominance_block': {
-        'amtpu_torch_route_block': (ctypes.c_int, [ctypes.c_void_p] * 10 + [
-            ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_int64,
+        'amtpu_torch_route_block': (ctypes.c_int, [ctypes.c_void_p] * 12 + [
+            ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_int64,
                                    ctypes.c_int, ctypes.c_void_p]),
         'amtpu_torch_route_block_scratch': (ctypes.c_int64, [
-            ctypes.c_int64] * 3 + [ctypes.c_int]),
+            ctypes.c_int64] * 4 + [ctypes.c_int]),
     },
 }
 

@@ -19,9 +19,12 @@ chunk's start state over those positions and scans it window by window
 
 `dominance_indexes_block_cuda` is the card's form of the block mode of
 `list_rank.dominance_indexes` (the JAX function's sequence-parallel
-mode): `csrc/dominance_block.cu`, one thread block per (doc, chunk)
-walking one sp block's elements; `dominance_indexes_block_auto` picks
-by device.
+mode): `csrc/dominance_block.cu`, in which each doc decides on the card
+whether one sp block regroups (the whole-doc route's dense positions
+compacted to the block: a bitmap over the doc's object starts,
+`object_starts`, and time chunks rebuilt and scanned in parallel) or
+walks the caller's chunks; `block_branch_counts` counts them and
+`dominance_indexes_block_auto` picks by device.
 """
 
 import contextlib
@@ -42,6 +45,8 @@ BLOCK_METRIC = 'launch.dominance_block'
 EXACT_COUNTS = 1 << 24
 #: device -> the route's branch counters (`branch_counts`)
 _BRANCH_COUNTS = {}
+#: device -> the sp-block route's branch counters (`block_branch_counts`)
+_BLOCK_BRANCH_COUNTS = {}
 
 
 def scratch_for(lib, O, L, T, chunk, device):
@@ -108,19 +113,32 @@ def dominance_grouped_auto(vis0, elem_rank, op_elem, op_rank, op_delta,
                              op_valid, chunk=chunk)
 
 
+def _counters(table, device):
+    """The int64 [2] device counters of `table` on `device`, made zero at
+    first use."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
+    counts = table.get(dev)
+    if counts is None:
+        counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+        table[dev] = counts
+    return counts
+
+
 def branch_counts(device):
     """The route's device counters on `device`, int64 [2]: docs that took
     the fast branch and docs that took the chunk scan, summed over every
     call since the tensor was made or last zeroed (`.zero_()`).  Reading
     them is a host read: do it outside the timed or checked region."""
-    dev = torch.device(device)
-    if dev.type == 'cuda' and dev.index is None:
-        dev = torch.device('cuda', torch.cuda.current_device())
-    counts = _BRANCH_COUNTS.get(dev)
-    if counts is None:
-        counts = torch.zeros((2,), dtype=torch.int64, device=dev)
-        _BRANCH_COUNTS[dev] = counts
-    return counts
+    return _counters(_BRANCH_COUNTS, device)
+
+
+def block_branch_counts(device):
+    """The sp-block route's device counters on `device`, as
+    `branch_counts`: int64 [2], (doc, block) calls that took the fast
+    branch and those that walked the caller's chunks."""
+    return _counters(_BLOCK_BRANCH_COUNTS, device)
 
 
 def dominance_indexes_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj,
@@ -197,6 +215,23 @@ def on_device(device):
         else contextlib.nullcontext()
 
 
+def object_starts(elem_obj):
+    """The docs' object starts, the block route's extra input: [D, L]
+    objects of the whole docs -> [D, L + 1] int32, object o spanning
+    count(o) + 1 dense positions from start(o) = sum over o' < o of
+    (count(o') + 1); objects outside [0, L) count nowhere.  Plain torch
+    on the objects' device, no host read."""
+    D, L = elem_obj.shape
+    dev = elem_obj.device
+    o = elem_obj.long()
+    ok = (o >= 0) & (o < L)
+    cnt = torch.zeros((D, L + 1), dtype=torch.int32, device=dev)
+    cnt.scatter_add_(1, torch.where(ok, o, L), ok.to(torch.int32))
+    starts = torch.zeros((D, L + 1), dtype=torch.int32, device=dev)
+    torch.cumsum(cnt[:, :L] + 1, dim=1, out=starts[:, 1:])
+    return starts
+
+
 def block_count_bound(L, T, chunk):
     """Checks, from the shapes alone, that every count of the block route
     over L elements (one block, or the sum of a doc's blocks) and T ops
@@ -212,52 +247,69 @@ def block_count_bound(L, T, chunk):
 
 def dominance_indexes_block_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj,
                                  op_rank, op_delta, op_valid, chunk=64,
-                                 l_offset=0):
+                                 l_offset=0, starts=None):
     """The card's form of `list_rank.dominance_indexes(..., block=True)`
     ([D, ...] or one doc), bit-equal to it at `chunk` (1 to 1024): each
     op's partial count over this sp block, whose first element is global
     index `l_offset`; the block at l_offset 0 adds the within-chunk term.
-    `csrc/dominance_block.cu`, one launch.  Nothing is read back to the
-    host; the scratch is sized from the shapes."""
+    `starts` ([D, L + 1] int32, or [L + 1] for one doc) holds each doc's
+    object starts over its whole L elements (`object_starts` of the
+    gathered doc's objects); the plain version does not take it.
+    `csrc/dominance_block.cu`: each doc decides on the card whether the
+    block regroups (dense positions over the block: the fast branch) or
+    walks the caller's chunks; `block_branch_counts` counts the docs of
+    each branch.  Nothing is read back to the host; the scratch is sized
+    from the shapes."""
     if elem_obj.device.type != 'cuda':
         raise ValueError('the dominance block kernel takes CUDA tensors, '
                          'got %s' % elem_obj.device)
+    if starts is None:
+        raise ValueError('the dominance block kernel takes the docs\' '
+                         'object starts (object_starts)')
     if elem_obj.dim() == 1:
         return dominance_indexes_block_cuda(
             elem_obj[None], elem_rank[None], vis0[None], op_elem[None],
             op_obj[None], op_rank[None], op_delta[None], op_valid[None],
-            chunk=chunk, l_offset=l_offset)[0]
+            chunk=chunk, l_offset=l_offset, starts=starts[None])[0]
     if not 1 <= chunk <= 1024:
         raise ValueError('the dominance block kernel takes a chunk in '
                          '[1, 1024], got %d' % chunk)
     dev = elem_obj.device
     D, L = elem_obj.shape
     T = op_elem.shape[1]
+    Lg = starts.shape[-1] - 1
     block_count_bound(L, T, chunk)
     elems = [x.to(torch.int32).contiguous() for x in (elem_obj, elem_rank)]
     vis = vis0.to(torch.float32).contiguous()
+    starts = starts.to(torch.int32).contiguous()
     ops = [x.to(torch.int32).contiguous()
            for x in (op_elem, op_obj, op_rank, op_delta)]
     valid = op_valid.to(torch.bool).contiguous()
-    for x in elems + ops + [vis, valid]:
+    for x in elems + ops + [vis, valid, starts]:
         if x.device != dev:
             raise ValueError('dominance inputs must share one device')
     if any(x.shape != (D, L) for x in elems + [vis]) or \
             any(x.shape != (D, T) for x in ops + [valid]):
         raise ValueError('dominance inputs must be [D, L] and [D, T]')
+    if starts.shape != (D, Lg + 1) or not 0 <= l_offset <= Lg - L or \
+            Lg >= 1 << 29:
+        raise ValueError('object starts must be [D, L + 1] over docs that '
+                         'hold the block (%d elements at %d), L < 2^29'
+                         % (L, l_offset))
     index = torch.empty((D, T), dtype=torch.int32, device=dev)
     if D == 0 or T == 0:
         return index
     lib = _build.kernel('dominance_block')
     scratch = torch.empty(
-        (max(lib.amtpu_torch_route_block_scratch(D, L, T, chunk), 1),),
-        dtype=torch.float32, device=dev)
+        (max(lib.amtpu_torch_route_block_scratch(D, L, Lg, T, chunk), 1),),
+        dtype=torch.int32, device=dev)
     err = lib.amtpu_torch_route_block(
         elems[0].data_ptr(), elems[1].data_ptr(), vis.data_ptr(),
-        ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
-        ops[3].data_ptr(), valid.data_ptr(), index.data_ptr(),
-        scratch.data_ptr(), D, L, T, chunk, int(l_offset),
-        1 if l_offset == 0 else 0, _build.stream_of(index))
+        starts.data_ptr(), ops[0].data_ptr(), ops[1].data_ptr(),
+        ops[2].data_ptr(), ops[3].data_ptr(), valid.data_ptr(),
+        index.data_ptr(), scratch.data_ptr(),
+        block_branch_counts(dev).data_ptr(), D, L, Lg, T, chunk,
+        int(l_offset), 1 if l_offset == 0 else 0, _build.stream_of(index))
     _build.check(err, 'dominance_block')
     trace.metric(BLOCK_METRIC)
     return index
@@ -265,13 +317,14 @@ def dominance_indexes_block_cuda(elem_obj, elem_rank, vis0, op_elem, op_obj,
 
 def dominance_indexes_block_auto(elem_obj, elem_rank, vis0, op_elem, op_obj,
                                  op_rank, op_delta, op_valid, chunk=64,
-                                 l_offset=0):
-    """The block kernel on a CUDA device, the plain version's block mode
-    on the CPU; the outputs are bit-equal (at `chunk`)."""
+                                 l_offset=0, starts=None):
+    """The block kernel on a CUDA device (which takes `starts`), the plain
+    version's block mode on the CPU (which does not); the outputs are
+    bit-equal (at `chunk`)."""
     if elem_obj.device.type == 'cuda':
         return dominance_indexes_block_cuda(
             elem_obj, elem_rank, vis0, op_elem, op_obj, op_rank, op_delta,
-            op_valid, chunk=chunk, l_offset=l_offset)
+            op_valid, chunk=chunk, l_offset=l_offset, starts=starts)
     if elem_obj.device.type != 'cpu':
         raise ValueError('no dominance block route for device %s'
                          % elem_obj.device)

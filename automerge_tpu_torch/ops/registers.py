@@ -382,9 +382,11 @@ def resolve_rank_dominate_resident_sharded(
     `linearize`; then each block's partial list indexes come from the
     block kernel on its own device (objects 0, op objects 0 where valid
     and -2 elsewhere, the block's own slice of the rank, visibility `ev`
-    of the block), and are summed once.  Returns (reg, rank, combo)."""
+    of the block, the arena's object starts [0, C + 1, ...]), and are
+    summed once.  Returns (reg, rank, combo)."""
     from .dominance_kernel import (block_count_bound,
-                                   dominance_indexes_block_auto, on_device)
+                                   dominance_indexes_block_auto,
+                                   object_starts, on_device)
     from .list_rank import linearize
     reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
                    sort_idx, None, window)
@@ -399,6 +401,8 @@ def resolve_rank_dominate_resident_sharded(
     orank, od = dominance_op_inputs(reg, rank, oe1, ds1, ov1)
     oobj = torch.where(ov1, 0, -2).to(torch.int32)
     block_count_bound(C, oe1.shape[0], chunk)
+    starts = object_starts(torch.zeros((1, C), dtype=torch.int32,
+                                       device=first))[0]
     parts = []
     for s, evb in enumerate(ev):
         dev = evb.device
@@ -407,7 +411,8 @@ def resolve_rank_dominate_resident_sharded(
                 torch.zeros((Ll,), dtype=torch.int32, device=dev),
                 rank[s * Ll:(s + 1) * Ll].to(dev), evb, oe1.to(dev),
                 oobj.to(dev), orank.to(dev), od.to(dev), ov1.to(dev),
-                chunk=chunk, l_offset=s * Ll).to(first))
+                chunk=chunk, l_offset=s * Ll,
+                starts=starts.to(dev)).to(first))
     idx = torch.stack(parts).sum(dim=0, dtype=torch.int32)
     combo = torch.cat([reg['packed'], idx])
     return reg, rank, combo

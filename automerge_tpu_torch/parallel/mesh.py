@@ -43,7 +43,8 @@ from ..ops import list_rank, registers
 from ..ops.clock_kernel import schedule_queue_auto
 from ..ops.dominance_kernel import (block_count_bound,
                                     dominance_indexes_auto,
-                                    dominance_indexes_block_auto, on_device)
+                                    dominance_indexes_block_auto,
+                                    object_starts, on_device)
 from ..ops.registers import WINDOW
 from ..ops.registers_kernel import resolve_registers_auto
 from . import replica
@@ -314,9 +315,11 @@ def build_sharded_step(mesh, n_linearize_iters, chunk=64):
 
     Per dp shard, on its first device: the sp blocks of the arena
     columns gathered for `linearize`, the single step's stages, and the
-    op metadata from the full rank; then each sp block's partial indexes
-    on the block's device against its own slice of the rank (op chunks
-    of `chunk`), summed once.  Nothing reads the card back."""
+    op metadata from the full rank and the docs' object starts (the
+    block kernel's extra input, `object_starts` of the gathered
+    objects); then each sp block's partial indexes on the block's device
+    against its own slice of the rank (op chunks of `chunk`), summed
+    once.  Nothing reads the card back."""
 
     def step(sb):
         if (sb.mesh.dp, sb.mesh.sp) != (mesh.dp, mesh.sp):
@@ -340,6 +343,7 @@ def build_sharded_step(mesh, n_linearize_iters, chunk=64):
                 local_clocks.append(torch.amax(doc_clock, dim=0))
                 Ll = cells[0]['eo'].shape[1]
                 with trace.span('step.route'):
+                    starts = object_starts(b['eo'])
                     parts = []
                     for s, (c, dev) in enumerate(zip(cells, row)):
                         with on_device(dev):
@@ -347,7 +351,8 @@ def build_sharded_step(mesh, n_linearize_iters, chunk=64):
                                 c['eo'], rank[:, s * Ll:(s + 1) * Ll].to(dev),
                                 c['vis0'], c['op_elem'], oobj.to(dev),
                                 orank.to(dev), od.to(dev), c['op_valid'],
-                                chunk=chunk, l_offset=s * Ll).to(first))
+                                chunk=chunk, l_offset=s * Ll,
+                                starts=starts.to(dev)).to(first))
                     indexes = parts[0] if len(parts) == 1 else \
                         torch.stack(parts).sum(dim=0, dtype=torch.int32)
             outs.append(_outputs(order, doc_clock, reg, rank, indexes))

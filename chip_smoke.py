@@ -109,7 +109,13 @@ sp-block route `dominance_block.cu`), then:
      the wrapper's back-to-back calls.  The sp-block kernel (since PR 13)
      is held to the plain block mode at every call of phase 16 and at
      the route's seeded random and chunk-dependent cases split into sp =
-     2 and 4 blocks, whose sum must equal the whole-doc route's output.
+     2 and 4 blocks (chunks 64, 128 and 1024), whose sum must equal the
+     whole-doc route's output, at a batch of docs of both of its
+     branches and at a one-object arena of the long text's build shape,
+     each call run once under the sync-debug mode 'error' and its
+     branch counters held to the model's per-doc test (since PR 14); its
+     timed calls are also set beside the whole-doc route's time on a
+     seeded doc of the same shape.
 
   12. serves the Backend protocol from the card (run before the checks of
      phase 11, which hold its kernel calls bit-equal too): (a) 32
@@ -215,10 +221,13 @@ sp-block route `dominance_block.cu`), then:
      `single_step`; (c) `MeshDocPool(dp)` at dp = 1, 2, 4 on config 3,
      every patch equal to phase 1's; (d) the sp-crossover probe, texts of
      8,192 to 262,144 characters in `MeshDocPool(1, 2)` with `sp_min` 16
-     and the default, patches equal across the arms; (e)
+     and the default, patches equal across the arms, each text's build
+     batch timed (since PR 14); (e)
      `sync/distributed.launch(2)`, the workers' pools on `cuda:0`, gossip
      over gloo.  Phase 3's hostile-staging lane also runs a
-     `MeshDocPool(2)` and the dp = 2 x sp = 2 sharded step.
+     `MeshDocPool(2)` and the dp = 2 x sp = 2 sharded step.  The block
+     route's branch counters over (a), (b) and (d) must show every doc
+     on its fast branch.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -757,99 +766,187 @@ def step_cases(torch, np, card):
     return err_s, err_i
 
 
-def check_block(torch, card, label, args, kw, timed=True):
+def check_block(torch, card, label, args, kw, timed=True, fast=None):
     """Bit-equality of the sp-block kernel (`csrc/dominance_block.cu`)
     with the block mode of the plain `list_rank.dominance_indexes` on the
-    card, at the call's chunk and l_offset, and (`timed`) the wrapper's
-    time (`ms`: back-to-back calls), its device time alone (a CUDA graph
-    of its launches) and the plain version's; returns (max abs error,
-    ms, plain ms, bound ms, bound by, graph ms), the last five None when
-    not timed.  The bound counts, as `indexes_bound` does, the regrouped
-    form's work over the block's elements."""
+    card, at the call's chunk and l_offset (the kernel also takes the
+    docs' object starts, `kw['starts']`), the kernel run once under the
+    sync-debug mode 'error' (no host read); its docs' branches (`fast`:
+    the docs that must take the fast branch, every doc when None; from
+    `block_branch_counts`, read once the run and the timing are done);
+    and (`timed`) the wrapper's time (`ms`: back-to-back calls), its
+    device time alone (a CUDA graph of its launches), the plain
+    version's, and as a yardstick the whole-doc route's on a seeded
+    regrouping doc of the same shape (`route_ms`, `route_graph_ms`).
+    Returns (max abs error, ms, plain ms, bound ms, bound by, graph ms,
+    route ms, route graph ms), the last seven None when not timed.  The
+    bound counts, as `indexes_bound` does, the regrouped form's work over
+    the block's elements."""
+    import numpy as np
+
     from automerge_tpu_torch.ops import dominance_kernel, list_rank
-    kw = {'chunk': kw.get('chunk', 64), 'l_offset': kw.get('l_offset', 0)}
-    got = dominance_kernel.dominance_indexes_block_cuda(*args, **kw)
-    want = list_rank.dominance_indexes(*args, block=True, **kw)
+    from torch_step_cases import dominance_indexes_case
+    plain_kw = {'chunk': kw.get('chunk', 64),
+                'l_offset': kw.get('l_offset', 0)}
+    kw = dict(plain_kw, starts=kw['starts'])
+    counts = dominance_kernel.block_branch_counts(args[0].device)
+    counts.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = dominance_kernel.dominance_indexes_block_cuda(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = list_rank.dominance_indexes(*args, block=True, **plain_kw)
     bad = int((got != want).sum())
     err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
     if bad:
         raise AssertionError('dominance_block %s: %d mismatches'
                              % (label, bad))
-    if not timed:
-        return err, None, None, None, None, None
-    # a call of tens of ms (the long text's build) is timed in fewer runs
-    heavy = args[0].numel() * args[3].shape[-1] > (1 << 28)
-    reps, rounds = (2, 3) if heavy else (20, 5)
-    ms = device_ms(torch, lambda: dominance_kernel
-                   .dominance_indexes_block_cuda(*args, **kw), reps, rounds)
-    g_ms = device_ms(torch, lambda: dominance_kernel
-                     .dominance_indexes_block_cuda(*args, **kw), reps,
-                     rounds, graph=True)
-    plain_ms = device_ms(torch, lambda: list_rank.dominance_indexes(
-        *args, block=True, **kw), reps=1 if heavy else 2,
-        rounds=1 if heavy else 3)
-    bound, by = indexes_bound(args if args[0].dim() == 2
-                              else [a[None] for a in args])
+    out = [None] * 7
     D = args[0].shape[0] if args[0].dim() == 2 else 1
-    log('dominance_block %s D=%d Ll=%d T=%d chunk=%d l_offset=%d: '
-        'mismatches 0, wrapper %.4f ms, kernel as a CUDA graph %.4f ms, '
-        'plain %.4f ms, bound %.3g ms (%s) on %s' % (
-            label, D, args[0].shape[-1], args[3].shape[-1], kw['chunk'],
-            kw['l_offset'], ms, g_ms, plain_ms, bound, by, card))
-    return err, ms, plain_ms, bound, by, g_ms
+    if timed:
+        # a call of tens of ms (the long text's build) is timed in fewer runs
+        heavy = args[0].numel() * args[3].shape[-1] > (1 << 28)
+        reps, rounds = (2, 3) if heavy else (20, 5)
+
+        def call():
+            return dominance_kernel.dominance_indexes_block_cuda(*args, **kw)
+        ms = device_ms(torch, call, reps, rounds)
+        g_ms = device_ms(torch, call, reps, rounds, graph=True)
+        plain_ms = device_ms(torch, lambda: list_rank.dominance_indexes(
+            *args, block=True, **plain_kw), reps=1 if heavy else 2,
+            rounds=1 if heavy else 3)
+        bound, by = indexes_bound(args if args[0].dim() == 2
+                                  else [a[None] for a in args])
+        Ll, T = args[0].shape[-1], args[3].shape[-1]
+        yard = [torch.from_numpy(np.asarray(x)).to(args[0].device)
+                for x in dominance_indexes_case(np.random.RandomState(0), D,
+                                                Ll, T, 1)]
+
+        def route():
+            return dominance_kernel.dominance_indexes_cuda(*yard)
+        route_ms = device_ms(torch, route, reps, rounds)
+        route_g = device_ms(torch, route, reps, rounds, graph=True)
+        out = [ms, plain_ms, bound, by, g_ms, route_ms, route_g]
+    # every run of the kernel adds (fast docs, scan docs) to the counters
+    n_fast, n_scan = counts.tolist()
+    want_fast = D if fast is None else fast
+    runs = (n_fast + n_scan) // max(D, 1)
+    if args[3].shape[-1] and (runs < 1 or n_fast + n_scan != runs * D
+                              or n_fast != runs * want_fast):
+        raise AssertionError('dominance_block %s: branch counters %d fast '
+                             '%d scan, expected %d of %d docs fast a run'
+                             % (label, n_fast, n_scan, want_fast, D))
+    if timed:
+        log('dominance_block %s D=%d Ll=%d T=%d chunk=%d l_offset=%d: '
+            'mismatches 0, %d fast / %d scan docs a run, no host read, '
+            'wrapper %.4f ms, kernel as a CUDA graph %.4f ms, plain %.4f '
+            'ms, the whole-doc route at the shape %.4f ms (graph %.4f), '
+            'bound %.3g ms (%s) on %s' % (
+                label, D, args[0].shape[-1], args[3].shape[-1],
+                plain_kw['chunk'], plain_kw['l_offset'], want_fast,
+                D - want_fast, out[0], out[4], out[1], out[5], out[6],
+                out[2], out[3], card))
+    return tuple([err] + out)
+
+
+def block_flags(np, case, starts, l_offset):
+    """The model's per-doc regroup test (`torch_step_cases.
+    block_regroups`) of one block's numpy columns: the docs that take the
+    fast branch."""
+    from torch_step_cases import block_regroups
+    return sum(block_regroups(case[0][d], case[1][d], case[2][d], starts[d],
+                              *[x[d] for x in case[3:]], l_offset)
+               for d in range(case[0].shape[0]))
 
 
 def block_cases(torch, np, card):
     """The sp-block kernel at the seeded random and chunk-dependent cases
     of the whole-doc route (`torch_step_cases`), each doc's elements split
     into sp = 2 and 4 blocks: every block bit-equal to the plain block
-    mode at chunks 64 and 128, and the blocks' sum at chunk 128 bit-equal
-    to the whole-doc route's output (`csrc/dominance_indexes.cu`, the
-    chunk-scan branch on the chunk-dependent cases).  Returns the largest
-    error (0: bit-equal)."""
+    mode at chunks 64, 128 and 1024, and the blocks' sum at chunk 128
+    bit-equal to the whole-doc route's output (`csrc/dominance_indexes.cu`,
+    the chunk-scan branch on the chunk-dependent cases); then a batch of
+    both branches (`mixed_block_case`, chunks 16 and 1024) and a seeded
+    one-object arena at the long text's build shape (`resident_block_case`,
+    262,144 elements and ops, two blocks, chunk 64).  Every call runs
+    under the sync-debug mode 'error' and its branch counters are held to
+    the model's per-doc test (`block_regroups`): the fast branch on the
+    random and one-object cases, the scan branch on the chunk-dependent
+    ones.  Returns the largest error (0: bit-equal)."""
     from automerge_tpu_torch.ops import dominance_kernel
     from torch_step_cases import (INDEXES_SHAPES, SCAN_SHAPES,
                                   dominance_indexes_case,
-                                  dominance_scan_case)
+                                  dominance_scan_case, mixed_block_case,
+                                  resident_block_case)
     dev = torch.device('cuda')
     err = n_calls = 0
-    for make, shapes in ((dominance_indexes_case, INDEXES_SHAPES),
-                         (dominance_scan_case, SCAN_SHAPES)):
+    branches = [0, 0]
+
+    def blocks(label, case, sps, chunks, route_chunk=None, want=None):
+        nonlocal err, n_calls
+        cc = [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+        starts = dominance_kernel.object_starts(cc[0])
+        st = starts.cpu().numpy()
+        route = None if route_chunk is None else \
+            dominance_kernel.dominance_indexes_cuda(*cc, chunk=route_chunk)
+        L = cc[0].shape[1]
+        for sp in sps:
+            Ll = L // sp
+            if Ll * sp != L:
+                raise AssertionError('block case L=%d: sp=%d' % (L, sp))
+            flags = []
+            for s in range(sp):
+                b = slice(s * Ll, (s + 1) * Ll)
+                flags.append(block_flags(np, [x[:, b] for x in case[:3]]
+                                         + list(case[3:]), st, s * Ll))
+                if want is not None and flags[-1] != want * len(cc[0]):
+                    raise AssertionError('block case %s: the model gives %d '
+                                         'fast docs' % (label, flags[-1]))
+            for chunk in chunks:
+                parts = []
+                for s in range(sp):
+                    b = slice(s * Ll, (s + 1) * Ll)
+                    args = [cc[0][:, b], cc[1][:, b], cc[2][:, b]] + cc[3:]
+                    kw = {'chunk': chunk, 'l_offset': s * Ll,
+                          'starts': starts}
+                    fast = flags[s]
+                    err = max(err, check_block(
+                        torch, card, '%s sp=%d' % (label, sp), args, kw,
+                        timed=False, fast=fast)[0])
+                    n_calls += 1
+                    branches[0] += fast
+                    branches[1] += len(cc[0]) - fast
+                    parts.append(dominance_kernel
+                                 .dominance_indexes_block_cuda(*args, **kw))
+                if chunk == route_chunk and not bool(
+                        (torch.stack(parts).sum(0, dtype=torch.int32)
+                         == route).all()):
+                    raise AssertionError(
+                        'dominance_block %s sp=%d: the blocks\' sum '
+                        'differs from the whole-doc route' % (label, sp))
+
+    for make, shapes, want in ((dominance_indexes_case, INDEXES_SHAPES, 1),
+                               (dominance_scan_case, SCAN_SHAPES, 0)):
         for shape in shapes:
-            case = [torch.from_numpy(np.asarray(x)).to(dev) for x in make(
-                np.random.RandomState(sum(shape)), *shape)]
-            route = dominance_kernel.dominance_indexes_cuda(*case,
-                                                            chunk=128)
-            L = case[0].shape[1]
-            for sp in (2, 4):
-                Ll = L // sp
-                if Ll * sp != L:
-                    raise AssertionError('block case L=%d: sp=%d' % (L, sp))
-                for chunk in (64, 128):
-                    parts = []
-                    for s in range(sp):
-                        b = slice(s * Ll, (s + 1) * Ll)
-                        args = [case[0][:, b], case[1][:, b],
-                                case[2][:, b]] + case[3:]
-                        kw = {'chunk': chunk, 'l_offset': s * Ll}
-                        err = max(err, check_block(
-                            torch, card, '%s sp=%d' % (make.__name__, sp),
-                            args, kw, timed=False)[0])
-                        n_calls += 1
-                        parts.append(dominance_kernel
-                                     .dominance_indexes_block_cuda(*args,
-                                                                   **kw))
-                    if chunk == 128 and not bool(
-                            (torch.stack(parts).sum(0, dtype=torch.int32)
-                             == route).all()):
-                        raise AssertionError(
-                            'dominance_block %s %s sp=%d: the blocks\' sum '
-                            'differs from the whole-doc route' % (
-                                make.__name__, shape, sp))
+            blocks('%s %s' % (make.__name__, shape), make(
+                np.random.RandomState(sum(shape)), *shape), (2, 4),
+                (64, 128, 1024), route_chunk=128, want=want)
+    for L, T in ((48, 32), (400, 600)):
+        blocks('mixed branches L=%d T=%d' % (L, T), mixed_block_case(
+            np.random.RandomState(L + T), 6, L, T), (2, 4), (16, 1024),
+            route_chunk=16)
+    blocks('one object at the build\'s shape', resident_block_case(
+        np.random.RandomState(5), 262144, 262144, 262144), (2,), (64,),
+        route_chunk=64, want=1)
     log('dominance_block: %d seeded calls (random and chunk-dependent cases '
-        'split at sp 2 and 4, chunks 64 and 128) bit-equal to the plain '
-        'block mode, each case\'s blocks summed bit-equal to the whole-doc '
-        'route on %s' % (n_calls, card))
+        'split at sp 2 and 4, chunks 64, 128 and 1024; a batch of both '
+        'branches at chunks 16 and 1024; a one-object arena at the build\'s '
+        'shape) bit-equal to the plain block mode, each case\'s blocks '
+        'summed bit-equal to the whole-doc route, every call without a '
+        'host read; %d fast / %d scan docs, as the model\'s test gives, '
+        'on %s' % (n_calls, branches[0], branches[1], card))
     return err
 
 
@@ -3023,23 +3120,40 @@ def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
     kernel on two sp blocks) and the default (131,072: the texts below it
     fenced, K2 on one device, the others sharded); every batch's bytes
     and the final patches equal across the arms; the median edit ms (the
-    first keystroke not counted), `mesh.sp_engaged` and
-    `mesh.sp_fenced`.  (e) `sync/distributed.
+    first keystroke not counted), each build batch's ms,
+    `mesh.sp_engaged` and `mesh.sp_fenced`.  (e) `sync/distributed.
     launch(2)`: two worker processes, each with two replica pools on
     `cuda:0`, gossip over gloo; every replica of every process equal to
-    the port oracle's tree (the workers check); rounds and walls.
+    the port oracle's tree (the workers check); rounds and walls.  Over
+    (a), (b) and (d) every doc of the block route's calls must take its
+    fast branch (`block_branch_counts`, `report['block_branches']`).
     Returns the phase's report."""
     import msgpack
 
     from automerge_tpu_torch import dryrun, trace
     from automerge_tpu_torch.native.mesh_pool import MeshDocPool
-    from automerge_tpu_torch.ops import list_rank
+    from automerge_tpu_torch.ops import dominance_kernel, list_rank
     from automerge_tpu_torch.parallel import mesh, mesh_encode
     from automerge_tpu_torch.sync import distributed
     t_phase = time.perf_counter()
-    report = {}
+    report = {'block_branches': {'fast': 0, 'scan': 0, 'lanes': {}}}
+    branch = dominance_kernel.block_branch_counts(torch.device('cuda'))
+
+    def block_branches(lane):
+        """The block route's branch counters over `lane` (zeroed before
+        it): every doc of every block call on the fast branch."""
+        fast, scan = branch.tolist()
+        branch.zero_()
+        if scan or not fast:
+            raise AssertionError('mesh (%s): block route branches %d fast, '
+                                 '%d scan' % (lane, fast, scan))
+        report['block_branches']['fast'] += fast
+        report['block_branches']['lanes'][lane] = fast
+        log('mesh (%s): %d docs of the block route\'s calls, all on its '
+            'fast branch (device counters) on %s' % (lane, fast, card))
 
     # -- (a) the dryrun: three workloads, then the scaling table ----------
+    branch.zero_()
     table, wall_a, _ = drive('mesh (a) dryrun gpu', lambda: dryrun
                              .dryrun_multichip(4),
                              need=(KS, K1, KB), waves=None)
@@ -3058,6 +3172,7 @@ def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
         torch.cuda.set_sync_debug_mode(0)
     step_equal('mesh (a) dp=2 sp=2 (sync-debug error mode)', out,
                mesh.single_step(batch, n_iters))
+    block_branches('a')
     log('mesh (a): dryrun %.3f s; scaling 2048 step medians %s; the dp=2 '
         'x sp=2 step after its uploads read nothing back (sync-debug error '
         'mode) and equals single_step on every key, on %s' % (
@@ -3091,6 +3206,8 @@ def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
             'median of 3 %.4f s, equal to single_step on every key on %s'
             % (sp, batch1['eo'].shape[1] // sp, first, _median(walls), card))
 
+    block_branches('b')
+
     # -- (c) the mesh pool on config 3 -------------------------------------
     want3 = patch_slices(out_gpu3)
     report['c_config3'] = {}
@@ -3107,18 +3224,22 @@ def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
             'pool\'s; %s on %s' % (dp, wall_m, counters, card))
 
     # -- (d) the sp-crossover probe ----------------------------------------
+    branch.zero_()
     report['d_sp_probe'] = {}
     results = {}
     for arm, sp_min in (('sp_min 16', 16), ('default', None)):
         kw = {} if sp_min is None else {'sp_min': sp_min}
         pool = MeshDocPool(1, 2, **kw)
-        rows, outs = {}, []
+        rows, builds, outs = {}, {}, []
 
-        def probe(pool=pool, rows=rows, outs=outs):
+        def probe(pool=pool, rows=rows, builds=builds, outs=outs):
             for n in SP_SIZES:
                 doc = 'sp-%d' % n
+                t = time.perf_counter()
                 outs.append(pool.apply_batch_bytes(msgpack.packb(
                     {doc: workloads.long_text_doc(n)}, use_bin_type=True)))
+                torch.cuda.synchronize()
+                builds[n] = (time.perf_counter() - t) * 1e3
                 times = []
                 for kind, body, _single in workloads.keystroke_edits(
                         n, n_keys=SP_EDITS)[:SP_EDITS]:
@@ -3134,17 +3255,20 @@ def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
                               waves=None)
         results[arm] = outs
         report['d_sp_probe'][arm] = {
-            'edit_ms': rows, 'wall_s': wall_d,
+            'edit_ms': rows, 'build_ms': builds, 'wall_s': wall_d,
             'sp_engaged': md.get('mesh.sp_engaged', 0),
             'sp_fenced': md.get('mesh.sp_fenced', 0),
             'resident_dispatches': md.get('resident.dispatches', 0)}
-        log('mesh (d) sp probe, %s arm: median keystroke ms %s, sp_engaged '
-            '%d, sp_fenced %d, resident dispatches %d, %.1f s on %s' % (
+        log('mesh (d) sp probe, %s arm: median keystroke ms %s, build '
+            'batch ms %s, sp_engaged %d, sp_fenced %d, resident dispatches '
+            '%d, %.1f s on %s' % (
                 arm, {k: round(v, 4) for k, v in rows.items()},
+                {k: round(v, 2) for k, v in builds.items()},
                 md.get('mesh.sp_engaged', 0), md.get('mesh.sp_fenced', 0),
                 md.get('resident.dispatches', 0), wall_d, card))
     if results['sp_min 16'] != results['default']:
         raise AssertionError('mesh (d): the two arms\' patches differ')
+    block_branches('d')
     d = report['d_sp_probe']
     lo, hi = d['sp_min 16'], d['default']
     if lo['sp_fenced'] or lo['sp_engaged'] != lo['resident_dispatches'] or \
@@ -3665,8 +3789,8 @@ def run(torch):
 
     # -- phase 16: the multi-device path, every cell on cuda:0 (before
     # the checks of phase 11, which hold its kernel calls too) ----------
-    mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
-               out_gpu)
+    mesh_report = mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB,
+                             payload3, out_gpu)
 
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:
@@ -3913,7 +4037,7 @@ def run(torch):
     for i, (path, args, kw) in enumerate(captured['block']):
         which = [k for k, j in sorted(timed_calls[path].items()) if j == i]
         timed = bool(which)
-        e, ms, plain_ms, bound, by, g_ms = check_block(
+        e, ms, plain_ms, bound, by, g_ms, r_ms, r_g = check_block(
             torch, card, 'main path %s' % path, args, kw, timed=timed)
         err_b = max(err_b, e)
         if not timed:
@@ -3923,7 +4047,8 @@ def run(torch):
             args[0].shape[0] if args[0].dim() == 2 else 1,
             args[0].shape[-1], args[3].shape[-1], kw.get('chunk', 64)),
             'ms': ms, 'graph_ms': g_ms,
-            'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by}
+            'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+            'route_ms': r_ms, 'route_graph_ms': r_g}
         if best is None or block_size((path, args)) > best[0]:
             best = (block_size((path, args)), label, seen[label])
     if best is None:
@@ -3937,6 +4062,7 @@ def run(torch):
         'replaces': 'automerge_tpu/ops/list_rank.py:195 (sp mode: '
                     'axis_name, l_offset; XLA, no Pallas kernel)',
         'launches': launches[KB], 'launches_by_path': by_path[KB],
+        'branch_counts': mesh_report['block_branches'],
         'timed_path': best[1], 'library_ms': None, 'paths': seen,
         'max_abs_err': err_b}, **best[2]))
     log('schedule, route and block main-path checks and timing: %.1f s'

@@ -279,6 +279,237 @@ def route_model(case, scan, **cut):
     return out, flags
 
 
+# -- the sp-block route's algorithm (`csrc/dominance_block.cu`) -------------
+
+#: the block route's constants: the short-doc limit, the most ops a
+#: query block takes, the (doc, time chunk) items it aims for, the items
+#: below which the positions split into slices, the smallest slice and
+#: the position window
+BLOCK_SHORT = 32
+BLOCK_TIME_MAX = 1024
+BLOCK_FEW = 264
+BLOCK_SLICE_ITEMS = 132
+BLOCK_MIN_SLICE = 2048
+BLOCK_WINDOW = 49152
+
+
+def object_starts(eo):
+    """A doc's object starts ([L] objects -> [L + 1]): object o spans
+    count(o) + 1 positions from start(o); objects outside [0, L) count
+    nowhere."""
+    L = eo.shape[0]
+    ok = (eo >= 0) & (eo < L)
+    cnt = np.bincount(eo[ok], minlength=L)[:L].astype(np.int64)
+    return np.concatenate([[0], np.cumsum(cnt + 1)]).astype(np.int32)
+
+
+def block_plan(D, Ll, T, K):
+    """The kernel's split at this shape: (time chunk, position slices):
+    the time chunk is the largest multiple of K up to BLOCK_TIME_MAX that
+    still gives about BLOCK_FEW (doc, time chunk) items; with fewer than
+    BLOCK_SLICE_ITEMS items the block's positions split into slices of
+    at least BLOCK_MIN_SLICE, up to BLOCK_FEW items in all."""
+    m = max(1, min(BLOCK_TIME_MAX // K, D * T // (BLOCK_FEW * K)))
+    tc = K * m
+    pairs = D * -(-T // tc)
+    n_slices = 1
+    if pairs < BLOCK_SLICE_ITEMS and Ll > BLOCK_MIN_SLICE:
+        n_slices = min(-(-Ll // BLOCK_MIN_SLICE), -(-BLOCK_FEW // pairs))
+    return tc, n_slices
+
+
+def block_regroups(eo, er, vis, starts, oe, oo, orr, od, ov, l_offset):
+    """The block route's per-doc test ([Ll] columns of the block, the
+    doc's [L + 1] object starts, [T] op columns): every element of the
+    block has 0 <= obj < L, vis in {0, 1}, -1 <= rank < (elements of its
+    object) and its position start(obj) + rank + 1 in [0, 2L); every
+    valid op whose element op_elem - l_offset lies in the block has that
+    element's object and rank; every invalid op has obj -2 and delta 0."""
+    Ll = eo.shape[0]
+    L = starts.shape[0] - 1
+    in_range = (eo >= 0) & (eo < L)
+    o = np.clip(eo, 0, max(L - 1, 0))
+    st = starts.astype(np.int64)
+    span = st[o + 1] - st[o] - 1 if L else np.zeros(Ll, np.int64)
+    g = st[o] + er + 1 if L else np.zeros(Ll, np.int64)
+    ok_e = in_range & ((vis == 0) | (vis == 1)) & (er >= -1) & (er < span) \
+        & (g >= 0) & (g < 2 * L)
+    le = oe.astype(np.int64) - l_offset
+    in_block = (le >= 0) & (le < Ll)
+    e = np.clip(le, 0, max(Ll - 1, 0))
+    if Ll:
+        ok_valid = ~in_block | ((oo == eo[e]) & (orr == er[e]))
+    else:
+        ok_valid = np.ones(oe.shape, bool)
+    ok_ops = np.where(ov, ok_valid, (oo == -2) & (od == 0))
+    return bool(ok_e.all() and ok_ops.all())
+
+
+def block_ranges(eo, er, starts, oo, orr):
+    """The bitmap compaction of one block that regroups: its elements'
+    global positions start(obj) + rank + 1 marked in 2L bits, the
+    popcount prefix `rank_of` ([2L + 1]: marked positions below each),
+    so an element's local position is rank_of[its position] (elements
+    at one position share it); and each op's local query range [lo, p)
+    from its (o, r): object o's positions [start(o), start(o) + r' + 1)
+    with r' = max(min(r, elements of o), -1), an empty range when o is
+    outside [0, L).  Returns (elem local positions, rank_of, lo, p)."""
+    L = starts.shape[0] - 1
+    st = starts.astype(np.int64)
+    marked = np.zeros(2 * L, bool)
+    g = st[eo] + er + 1 if eo.size else np.zeros(0, np.int64)
+    marked[g] = True
+    rank_of = np.concatenate([[0], np.cumsum(marked)]).astype(np.int64)
+    in_obj = (oo >= 0) & (oo < L)
+    o = np.clip(oo, 0, max(L - 1, 0))
+    if L:
+        span = st[o + 1] - st[o] - 1
+        r = np.maximum(np.minimum(orr.astype(np.int64), span), -1)
+        glo = np.clip(st[o], 0, 2 * L)
+        ghi = np.clip(st[o] + r + 1, 0, 2 * L)
+    else:
+        glo = ghi = np.zeros(oo.shape, np.int64)
+    lo = np.where(in_obj, rank_of[glo], 0)
+    p = np.where(in_obj, rank_of[ghi], 0)
+    return rank_of[g], rank_of, lo, p
+
+
+def block_fast(eo, er, vis, starts, oe, oo, orr, od, ov, K, l_offset,
+               tc=None, n_slices=1, window=BLOCK_WINDOW):
+    """The fast branch of one block of a doc that regroups, as the long
+    kernels compute it: local positions (`block_ranges`), the visible
+    elements' count per local position (cnt0); then per time chunk of
+    `tc` ops (a multiple of the caller's chunk K), per slice of the
+    block's positions and window by window, the count of each position
+    at the time chunk's start (cnt0 plus the deltas of the earlier time
+    chunks' valid ops whose element lies in the block), its exclusive
+    prefix H, and each op's share H(p) - H(lo) of the window; then the
+    earlier ops j of its own time chunk: from an earlier caller chunk,
+    d_j when j is valid, its element in the block and its position in
+    [lo, p); from the op's own caller chunk, in the block at l_offset 0
+    alone, d_j when j has the op's object and a lower rank, valid or
+    not (the plain block mode's within-chunk term)."""
+    Ll, T = eo.shape[0], oe.shape[0]
+    tc = K if tc is None else tc
+    assert tc % K == 0
+    elem_pos, rank_of, lo, p = block_ranges(eo, er, starts, oo, orr)
+    n_pos = int(rank_of[-1])
+    cnt0 = np.bincount(elem_pos[vis != 0], minlength=Ll).astype(np.int64)
+    le = oe.astype(np.int64) - l_offset
+    in_block = ov & (le >= 0) & (le < Ll)
+    pos = np.where(in_block & (od != 0), p, -1)
+    size = max(1, -(-Ll // n_slices))
+    out = np.zeros(T, np.int64)
+    # the count of each local position at the time chunk's start, kept
+    # from one time chunk to the next (the kernel rebuilds it per window)
+    start = cnt0.copy()
+    for c0 in range(0, T, tc):
+        ks = np.arange(c0, min(T, c0 + tc))
+        part = np.zeros(len(ks), np.int64)
+        for s in range(n_slices):
+            s0, s1 = s * size, min((s + 1) * size, n_pos)
+            for w0 in range(s0, s1, window):
+                n = min(window, s1 - w0)
+                H = np.concatenate([[0], np.cumsum(start[w0:w0 + n])])
+                part += H[np.clip(p[ks] - w0, 0, n)] \
+                    - H[np.clip(lo[ks] - w0, 0, n)]
+        live = pos[ks] >= 0
+        np.add.at(start, pos[ks][live], od[ks][live])
+        # [j, k] over the time chunk: j before k
+        before_k = ks[:, None] < ks[None, :]
+        same = ks[:, None] // K == ks[None, :] // K
+        in_range = (lo[ks][None, :] <= pos[ks][:, None]) & \
+            (pos[ks][:, None] < p[ks][None, :])
+        walk = before_k & ~same & in_range
+        if l_offset == 0:
+            walk |= before_k & same & (oo[ks][:, None] == oo[ks][None, :]) \
+                & (orr[ks][:, None] < orr[ks][None, :])
+        part += (walk * od[ks].astype(np.int64)[:, None]).sum(axis=0)
+        out[ks] = part
+    return out.astype(np.int32)
+
+
+def block_direct(eo, er, vis, oe, oo, orr, od, ov, K, l_offset):
+    """The fast branch of one short block that regroups, as the warp
+    kernel counts it (every pair at once): the block's visible elements
+    of the op's object at lower rank, plus the deltas of the earlier
+    ops of an earlier caller chunk that are valid, touch an element of
+    the block, and have the op's object and a lower rank, plus (at
+    l_offset 0) those of its own caller chunk, valid or not."""
+    Ll, T = eo.shape[0], oe.shape[0]
+    le = oe.astype(np.int64) - l_offset
+    in_block = ov & (le >= 0) & (le < Ll)
+    base = ((eo[None, :] == oo[:, None]) & (er[None, :] < orr[:, None])) \
+        @ vis.astype(np.int64)
+    t = np.arange(T)
+    # [j, k]: an earlier op of the op's object at a lower rank
+    pair = (t[:, None] < t[None, :]) & (oo[:, None] == oo[None, :]) \
+        & (orr[:, None] < orr[None, :])
+    same = t[:, None] // K == t[None, :] // K
+    take = pair & np.where(same, l_offset == 0, in_block[:, None])
+    return (base + (take * od.astype(np.int64)[:, None]).sum(axis=0)) \
+        .astype(np.int32)
+
+
+def block_model(case, starts, K, l_offset, scan, **cut):
+    """The block route over one block's [D, ...] inputs (`case`: the
+    block's element columns and the ops, op_elem global) and the docs'
+    [D, L + 1] object starts: (index [D, T] int32, per-doc flags [D]
+    bool).  A doc that regroups takes `block_direct` when the block is
+    short (Ll and T at most 32, the warp kernel) and `block_fast` (the
+    kernel's plan, `block_plan`, unless `cut` gives tc, n_slices or
+    window) otherwise; any other doc takes `scan(doc's columns)`, the
+    plain block mode."""
+    D, Ll = case[0].shape
+    T = case[3].shape[1]
+    tc, n_slices = block_plan(D, Ll, T, K)
+    plan = dict({'tc': tc, 'n_slices': n_slices}, **cut)
+    flags = np.zeros(D, bool)
+    out = np.zeros((D, T), np.int32)
+    for d in range(D):
+        doc = [np.asarray(x[d]) for x in case]
+        eo, er, vis, oe, oo, orr, od, ov = doc
+        flags[d] = block_regroups(eo, er, vis, starts[d], oe, oo, orr, od,
+                                  ov, l_offset)
+        if not flags[d]:
+            out[d] = scan(doc)
+        elif Ll <= BLOCK_SHORT and T <= BLOCK_SHORT:
+            out[d] = block_direct(*doc, K=K, l_offset=l_offset)
+        else:
+            out[d] = block_fast(eo, er, vis, starts[d], oe, oo, orr, od, ov,
+                                K, l_offset, **plan)
+    return out, flags
+
+
+def resident_block_case(rs, C, n_elems, T):
+    """One object over an arena of capacity C of which the first n_elems
+    rows are live (ranks a permutation of them; padding rows rank -1,
+    invisible), as `ops/registers.py::
+    resolve_rank_dominate_resident_sharded` hands it to the blocks: ops
+    on live rows (obj 0, the row's rank) where valid, obj -2, rank -1,
+    delta 0 elsewhere."""
+    eo = np.zeros((1, C), np.int32)
+    er = np.full((1, C), -1, np.int32)
+    er[0, :n_elems] = rs.permutation(n_elems)
+    vis = np.zeros((1, C), np.float32)
+    vis[0, :n_elems] = rs.random_sample(n_elems) < 0.6
+    ov = rs.random_sample((1, T)) < 0.9
+    oe = np.where(ov, rs.randint(0, n_elems, (1, T)), -1).astype(np.int32)
+    oo = np.where(ov, 0, -2).astype(np.int32)
+    orr = np.where(ov, er[0, np.maximum(oe, 0)], -1).astype(np.int32)
+    od = np.where(ov, rs.randint(-1, 2, (1, T)), 0).astype(np.int32)
+    return eo, er, vis, oe, oo, orr, od, ov
+
+
+def mixed_block_case(rs, D, L, T):
+    """Docs that regroup (even) beside docs that do not (odd)."""
+    good = dominance_indexes_case(rs, D, L, T, 2)
+    bad = dominance_scan_case(rs, D, L, T, 2)
+    even = (np.arange(D) % 2 == 0)
+    return [np.where(even.reshape((D,) + (1,) * (g.ndim - 1)), g, b)
+            for g, b in zip(good, bad)]
+
+
 # -- edge cases of the two step kernels ------------------------------------
 
 def schedule_edge_cases(rs):
