@@ -96,9 +96,10 @@ from .resident import ResidentCache
 #: narrow: larger batches read the unpacked register outputs and merge
 #: the escalation tiers on the host (`_escalate`)
 PACKED_ROWS_MAX = 1 << 24
-#: the conflict rows of a member batch come back as one dense [Tp, W]
-#: transfer, sliced on the host, once more than 1 / CONF_DENSE_THRESH of
-#: its rows need one; below that, as a row gather on the device
+#: the conflict rows of a batch come back as one dense [Tp, W] transfer,
+#: sliced on the host, once more than 1 / CONF_DENSE_THRESH of its rows
+#: need one; below that, as a row gather on the device (the JAX pool's
+#: AMTPU_CONF_DENSE_THRESH)
 CONF_DENSE_THRESH = 4
 #: waves a pipelined payload splits into (below 2: never split); the JAX
 #: pool's default AMTPU_PIPELINE_DEPTH
@@ -224,11 +225,11 @@ def _cxx_trace(L, bh):
         trace.add('cxx.' + name, float(val))
     sc = (ctypes.c_int64 * 4)()
     L.amtpu_sched_counts(bh, sc)
-    trace.metric('sched.fast_path', int(sc[0]))
-    trace.metric('sched.queued', int(sc[1]))
+    trace.count('sched.fast_path', int(sc[0]))
+    trace.count('sched.queued', int(sc[1]))
     if sc[2]:
-        trace.metric('sched.trivial_rows', int(sc[2]))
-        trace.metric('sched.trivial_groups', int(sc[3]))
+        trace.count('sched.trivial_rows', int(sc[2]))
+        trace.count('sched.trivial_groups', int(sc[3]))
 
 
 def _batch_docs(bh, payload):
@@ -575,7 +576,7 @@ class NativeDocPool:
         L.amtpu_fused_dims(bh, fdims)
         fused_ok, W, dLp, dTp, resident_ok, res_clock = \
             [int(x) for x in fdims]
-        trace.metric('ops.register_rows', T)
+        trace.count('ops.register_rows', T)
         # C++ builds member windows once a register group is wider than
         # WINDOW.  A sliding window that covers the widest group is exact
         # and cannot saturate, so up to SLIDING_MAX the register kernel
@@ -590,7 +591,7 @@ class NativeDocPool:
         # stale member state is never read.  The member windows are still
         # built in begin; skipping them belongs in core.cpp (ROADMAP).
         if use_members and max_group <= register_ops.SLIDING_MAX:
-            trace.metric('registers.sliding_over_members')
+            trace.count('registers.sliding_over_members')
             use_members = 0
         mem = hovf = None
         if use_members and Tp > 0:
@@ -608,6 +609,10 @@ class NativeDocPool:
                    mem=mem, hovf=hovf, weff=weff, resident_ok=resident_ok)
         if res_clock and Tp > 0:
             ctx['ctab_dev'] = self._resclk.table(L, self._pool)
+            stats = (ctypes.c_int64 * 2)()
+            L.amtpu_resclk_batch_stats(bh, stats)
+            if stats[0]:
+                trace.metric('resident.batch_hit_rows', int(stats[0]))
         elif not res_clock:
             self._resclk.drop_if_disabled(L, self._pool)
         if faults.ARMED:
@@ -771,7 +776,7 @@ class NativeDocPool:
             # a MeshDocPool(dp=1, sp>1) past the sp fence: the element
             # axis sharded over the sp blocks (get_entry placed them)
             resolve = register_ops.resolve_rank_dominate_resident_sharded
-            trace.metric('resident.sharded_dispatch')
+            trace.count('resident.sharded_dispatch')
         else:
             resolve = register_ops.resolve_rank_dominate_resident
         reg_out, rank, combo = resolve(
@@ -785,7 +790,7 @@ class NativeDocPool:
         touched = np.unique(oe[0][ov[0] & (oe[0] >= 0)]).astype(np.int32)
         ctx.update(combo=combo, reg_out=reg_out, rank=rank,
                    resident=(entry, doc_id, obj_sid, n_now, touched))
-        trace.metric('resident.dispatch')
+        trace.count('resident.dispatch')
         trace.metric('resident.dispatches')
         return True
 
@@ -804,7 +809,7 @@ class NativeDocPool:
                     (doc_id, int(meta[o * 4 + 1])))
                 if entry is not None:
                     entry.dirty = True
-                    trace.metric('resident.cross_path_invalidation')
+                    trace.count('resident.cross_path_invalidation')
 
     def _phase_b(self, ctx):
         """Collect device results, run host mid + emit, return patch bytes."""
@@ -840,7 +845,8 @@ class NativeDocPool:
             conf_rows = np.nonzero(
                 ((packed >> register_ops.PACKED_ALIVE_SHIFT)
                  & register_ops.PACKED_ALIVE_MASK) > 1)[0].astype(np.int32)
-            conf_vals = self._gather_conflict_rows(ctx['reg_out'], conf_rows)
+            conf_vals = self._fetch_conflict_rows(ctx['reg_out'], conf_rows,
+                                                  Tp)
             conf_offs = np.arange(conf_rows.size + 1,
                                   dtype=np.int32) * ctx['weff']
             with trace.span('host.mid'):
@@ -1068,6 +1074,8 @@ class NativeDocPool:
             rows = torch.from_numpy(np.asarray(sub_rows, np.int64)).to(
                 self.device)
             register_ops.merge_packed_rows(base, rows, out['packed'])
+        if pending:
+            trace.metric('collect.device_merge_chunks', len(pending))
         packed = _to_host(base)
         esc_parts = []            # (global rows, global conflicts) pairs
         if flagged.any():
@@ -1103,12 +1111,16 @@ class NativeDocPool:
         return packed, conf_rows, conf_offs, conf_vals, residual
 
     def _fetch_conflict_rows(self, reg_out, conf_rows, Tp):
-        """Conflict rows of a member batch: a row gather on the device
-        while they are rare, the whole [Tp, W] matrix sliced on the host
-        once more than Tp / CONF_DENSE_THRESH rows need one."""
+        """Conflict rows of a batch: a row gather on the device while
+        they are rare, the whole [Tp, W] matrix sliced on the host once
+        more than Tp / CONF_DENSE_THRESH rows need one.  Each choice is
+        counted: collect.conflict_sparse / collect.conflict_dense."""
         if conf_rows.size * CONF_DENSE_THRESH > Tp:
+            trace.metric('collect.conflict_dense')
             return np.ascontiguousarray(
                 _to_host(reg_out['conflicts'])[conf_rows], np.int32)
+        if conf_rows.size:
+            trace.metric('collect.conflict_sparse')
         return self._gather_conflict_rows(reg_out, conf_rows)
 
     def _run_resolver(self, L, bh, Tp, Ap, CTp, Lp, max_obj, ctx):
@@ -1280,9 +1292,10 @@ class NativeDocPool:
 
     def _snapshot_meta(self, st):
         """(raw, actor, seq) of every change of a snapshot's chunks, in
-        application order (the C++ codec, then each raw change read)."""
-        return [_raw_actor_seq(raw) for chunk in st['chunks']
-                for raw in storage.decode_columnar(chunk)]
+        application order (`storage.decode_columnar_meta`, the Python
+        decoder, as the JAX pool reads them)."""
+        return [meta for chunk in st['chunks']
+                for meta in storage.decode_columnar_meta(chunk)]
 
     def _merged_missing_raws(self, key, st, from_clock):
         """Snapshot + tail merge: per actor in first-seen application
@@ -1404,6 +1417,9 @@ class NativeDocPool:
             if not dims[13]:
                 raise AssertionError('an arena-direct batch was not '
                                      'pinned host-full')
+            # counted as the JAX pool's phase a counts a pinned batch
+            trace.count('hostfull.batches')
+            trace.metric('hostfull.batches')
             with trace.span('host.mid'):
                 if L.amtpu_mid_hostreg(bh) != 0:
                     _raise_last()

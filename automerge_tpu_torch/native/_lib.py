@@ -74,6 +74,11 @@ _ABI = {
     'amtpu_esc_mem': (_i32p, [_vp]),
     'amtpu_resclk_info': (None, [_vp, _i64p]),
     'amtpu_resclk_tab': (_i32p, [_vp]),
+    # per batch: [rows served from persisted entries, 1 if it appended]
+    'amtpu_resclk_batch_stats': (None, [_vp, _i64p]),
+    # the numeric latch defaults: [AMTPU_RESIDENT_MIN,
+    # AMTPU_RESCLK_MAX_ACTORS, AMTPU_RESCLK_MAX_ROWS]
+    'amtpu_latch_defaults': (None, [_i64p]),
     'amtpu_get_patch': (_u8p, [_vp, _cp, _i64p]),
     'amtpu_get_clock': (_u8p, [_vp, _cp, _i64p]),
     'amtpu_save': (_u8p, [_vp, _cp, _i64p]),

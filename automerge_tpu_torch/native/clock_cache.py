@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..analysis import sanitize
 from ..ops import registers as register_ops
 
 
@@ -66,6 +67,8 @@ class PoolClockCache:
             self.tab, self.cap = grown, cap
             trace.metric('resident.batch_grow_uploads')
         if need_full:
+            if gen != self.gen and self.tab is not None:
+                trace.metric('resident.batch_gen_invalidation')
             cap = _bucket_pow2(max(n, 1), floor=64)
             host = np.zeros((cap, max(ap, 1)), np.int32)
             if n:
@@ -74,6 +77,7 @@ class PoolClockCache:
             self.tab = register_ops.upload(host, self.device)
             self.cap = cap
             trace.metric('resident.batch_full_uploads')
+            trace.metric('resident.batch_full_upload_rows', n)
         elif n > self.n:
             src = np.ctypeslib.as_array(L.amtpu_resclk_tab(pool),
                                         shape=(n, ap))
@@ -82,8 +86,16 @@ class PoolClockCache:
             idx = torch.arange(self.n, n, device=self.device)
             self.tab.index_copy_(0, idx, register_ops.upload(rows,
                                                           self.device))
+            # the upload took a private copy (a synchronous pageable copy
+            # on a card, `index_copy_` itself on the CPU), so the staging
+            # rows are dead here: armed, the sanitizer poisons them, and
+            # any alias of them in the table shows as wrong bytes
+            sanitize.poison(rows)
+            trace.metric('resident.batch_hits')
             trace.metric('resident.batch_delta_rows', n - self.n)
         else:
+            # every clock row of this batch was already resident
+            trace.metric('resident.batch_hits')
             trace.metric('resident.batch_noop')
         self.gen, self.n, self.ap = gen, n, ap
         return self.tab

@@ -136,7 +136,7 @@ class ResidentCache:
             pos = bisect.bisect_left(self.actor_order, s)
             if pos != len(self.actor_order):
                 self.entries.clear()
-                trace.metric('resident.actor_invalidation')
+                trace.count('resident.actor_invalidation')
             self.actor_order.insert(pos, s)
         return np.array([bisect.bisect_left(self.actor_order,
                                             self.sid_str[sid])
@@ -196,7 +196,7 @@ class ResidentCache:
             entry.ev = full(vis, np.float32, 0.0)
             entry.n = n_now
             self.entries[key] = entry
-            trace.metric('resident.full_upload_rows', n_now)
+            trace.count('resident.full_upload_rows', n_now)
         elif n_now > lo:
             # appended rows are the contiguous range [lo, n_now)
             for col, a, dtype in ((entry.par, par, np.int32),
@@ -207,9 +207,9 @@ class ResidentCache:
                 _write_rows(col, entry.blocks, lo, np.asarray(src, dtype),
                             dev)
             entry.n = n_now
-            trace.metric('resident.delta_upload_rows', n_now - lo)
+            trace.count('resident.delta_upload_rows', n_now - lo)
         else:
-            trace.metric('resident.no_upload')
+            trace.count('resident.no_upload')
         return entry
 
     def invalidate_doc(self, doc_id):

@@ -5,14 +5,19 @@ v1 is a msgpack map {'format': 'amtpu-doc-v1', 'changes': [raw change,
 default `save`) is {'format': 'amtpu-doc-v2c', 'frontier': {actor: seq},
 'chunks': [columnar blob, ...], 'tail': columnar blob}: the settled
 snapshot chunks hold exactly the changes at or behind the frontier, the
-tail everything after.  The columnar codec is the C++ one of the port's
-own build of `native/core.cpp` (`amtpu_columnar_encode` / `_decode`), the
-codec the JAX package's pool calls too, so both write the same bytes.
+tail everything after.  The columnar codec (`columnar.py`) is the C++
+one of the port's own build of `native/core.cpp` by default, with the
+Python codec as its parity oracle (`native.STORAGE_NATIVE = False`) and
+its fallback; both write the bytes the JAX package's codecs write.
 """
 
-import ctypes
-
 import msgpack
+
+from .. import telemetry
+from .columnar import (corrupt_raises_value_error,  # noqa: F401
+                       decode_columnar, decode_columnar_dicts,
+                       decode_columnar_meta, encode_columnar,
+                       encode_columnar_dicts)
 
 FORMAT_V1 = 'amtpu-doc-v1'
 FORMAT_V2 = 'amtpu-doc-v2c'
@@ -64,36 +69,11 @@ def pack_checkpoint_v1(raws):
     return CKPT_V1_PREFIX + join_changes_array(raws)
 
 
-def encode_columnar(raws):
-    """Raw change bytes -> one columnar blob (the C++ codec)."""
-    from ..native._lib import lib, take_buf
-    payload = msgpack.packb([bytes(r) for r in raws], use_bin_type=True)
-    out_len = ctypes.c_int64()
-    ptr = lib().amtpu_columnar_encode(payload, len(payload),
-                                      ctypes.byref(out_len), None)
-    if not ptr:
-        raise ValueError('columnar encode failed: %s'
-                         % lib().amtpu_last_error().decode())
-    return take_buf(ptr, out_len.value)
-
-
-def decode_columnar(blob):
-    """Columnar blob -> the raw change bytes it was encoded from, byte for
-    byte.  A corrupt blob raises ValueError."""
-    from ..native._lib import lib, take_buf
-    blob = bytes(blob)
-    out_len = ctypes.c_int64()
-    ptr = lib().amtpu_columnar_decode(blob, len(blob), ctypes.byref(out_len))
-    if not ptr:
-        raise ValueError('corrupt columnar blob: %s'
-                         % lib().amtpu_last_error().decode())
-    return msgpack.unpackb(take_buf(ptr, out_len.value), raw=False)
-
-
 def pack_checkpoint(frontier, chunks, tail_raws):
     """The v2 container: settled snapshot chunks (columnar blobs,
     application order, exactly the changes at or behind `frontier`) and
     the tail (every later change, columnar-encoded here)."""
+    telemetry.metric('storage.save_v2')
     return (CKPT_V2_PREFIX +
             msgpack.packb('frontier') +
             msgpack.packb(dict(frontier or {}), use_bin_type=True) +

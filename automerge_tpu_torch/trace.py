@@ -5,12 +5,18 @@
 `fallback.overflow_batches`, the kernel launch counts `launch.<kernel>`,
 the `resilience.*` counts), so `telemetry.metrics_snapshot()`, the
 `healthz` payload and the Prometheus exposition read the same numbers
-this module does.  `span(name)` adds the wall time of a block to
+this module does.  `count(name, n)` adds to telemetry's phase table
+(`telemetry.phase_snapshot()`, the `amtpu_phase_calls_total` family)
+while span tracing is enabled (`telemetry.enable()`), as the JAX
+package's `trace.count` does: the per-batch tallies of the scheduler,
+the register rows and the resident route stay out of the flat table.
+`span(name)` adds the wall time of a block to
 `<name>` in an always-on span table, and `add(name, seconds)` a duration
 measured elsewhere (the C++ stage times `cxx.*`); while span tracing is
 enabled (`telemetry.enable()`) both also feed telemetry's phase
-occupancy table.  Both tables are read with `snapshot()` and cleared
-with `reset()`.
+occupancy table.  The flat map and the span table are read with
+`snapshot()` and cleared with `reset()`; the phase table with
+`telemetry.phase_snapshot()` and `telemetry.phase_reset()`.
 """
 
 import contextlib
@@ -25,6 +31,10 @@ _spans = {}
 
 def metric(name, n=1):
     _t.metric(name, n)
+
+
+def count(name, n=1):
+    _t.phase_count(name, n)
 
 
 @contextlib.contextmanager

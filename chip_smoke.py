@@ -228,6 +228,23 @@ sp-block route `dominance_block.cu`), then:
      `MeshDocPool(2)` and the dp = 2 x sp = 2 sharded step.  The block
      route's branch counters over (a), (b) and (d) must show every doc
      on its fast branch.
+  17. checks the port's static gate and its alias sanitizer (after phase
+     16, before the checks of phase 11, which hold its kernel calls too;
+     `analysis_phase`): (a) `python -m
+     automerge_tpu_torch.tools.static_check --no-lint` on this checkout
+     must report 0 findings; (b) three rounds of
+     `tests/test_analysis.py::BATCH_WORKLOAD`'s shape at 4,096 docs x 8
+     actors (32,768 fresh clock rows a round) on card pools with the
+     resident clock cache engaged, unarmed and with `sanitize.arm()`:
+     equal bytes, equal to a CPU pool's, buffers poisoned
+     (`sanitize.poisoned_buffers`); (c) the deliberate alias: a patched
+     delta hands the clock table its staging rows from page-locked
+     memory in a non_blocking copy queued behind `torch.cuda._sleep`,
+     the sanitizer poisons them, and the bytes must diverge.  The
+     scheduler's and the resident route's tallies (`sched.*`,
+     `ops.register_rows`, `resident.*_upload_rows`, ...) are phase
+     counters, as in the JAX package: phases 5, 10 and 12 (a) read them
+     from the phase table with span tracing on.
 
 The launch counts of each path are zeroed just before the path runs and
 read just after; launches made for the comparisons do not count.  The
@@ -274,6 +291,17 @@ RESIDENT_COUNTERS = ('resident.dispatches', 'resident.full_upload_rows',
                      'resident.delta_upload_rows', 'resident.no_upload',
                      'resident.actor_invalidation',
                      'resident.cross_path_invalidation')
+#: the pool's per-batch tallies that count in telemetry's phase table
+#: (`trace.count`, while span tracing is on), as the JAX package's do;
+#: a path driven with `phases=True` reads them beside the flat counters
+PHASE_COUNTERS = ('sched.fast_path', 'sched.queued', 'sched.trivial_rows',
+                  'sched.trivial_groups', 'ops.register_rows',
+                  'registers.sliding_over_members', 'resident.dispatch',
+                  'resident.sharded_dispatch', 'resident.full_upload_rows',
+                  'resident.delta_upload_rows', 'resident.no_upload',
+                  'resident.actor_invalidation',
+                  'resident.cross_path_invalidation',
+                  'sanitize.poisoned_buffers')
 
 
 def log(*args):
@@ -1057,6 +1085,15 @@ def count_launches(torch, fn):
     return len(dev) - copies, copies
 
 
+def counts_of(trace, telemetry):
+    """The flat counters and, beside them, the phase counters of
+    PHASE_COUNTERS (their call counts) in one table."""
+    m = dict(trace.snapshot()['metrics'])
+    m.update({k: v['n'] for k, v in telemetry.phase_snapshot().items()
+              if k in PHASE_COUNTERS})
+    return m
+
+
 def _delta(before, after):
     return {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
@@ -1066,10 +1103,13 @@ def run_stream(torch, trace, pool, steps, payloads):
     """Applies an edit stream to one pool, step by step.  Returns the
     results (batch bytes or local-change patches) and, per step, the
     wall seconds (host clock, ending in a device synchronize) and the
-    counters and spans the step added."""
+    counters and spans the step added (its phase counters too, counted
+    while span tracing is on)."""
+    from automerge_tpu_torch import telemetry
     out = {'results': [], 'wall': [], 'counts': [], 'spans': []}
     for (kind, body, _single), payload in zip(steps, payloads):
         m0 = trace.snapshot()
+        c0 = counts_of(trace, telemetry)
         t = time.perf_counter()
         if kind == 'batch':
             res = pool.apply_batch_bytes(payload)
@@ -1078,7 +1118,7 @@ def run_stream(torch, trace, pool, steps, payloads):
         torch.cuda.synchronize()
         out['wall'].append(time.perf_counter() - t)
         m1 = trace.snapshot()
-        out['counts'].append(_delta(m0['metrics'], m1['metrics']))
+        out['counts'].append(_delta(c0, counts_of(trace, telemetry)))
         out['spans'].append(_delta(m0['spans'], m1['spans']))
         out['results'].append(res)
     return out
@@ -1158,7 +1198,8 @@ def resident_phase(torch, card, workloads, native, NativeDocPool, R, drive,
         R.resolve_rank_dominate_resident = keep_last
         try:
             on, _, _ = drive('resident %d gpu' % size, lambda: run_stream(
-                torch, trace, on_pool, steps, payloads), need=(K1, K2))
+                torch, trace, on_pool, steps, payloads), need=(K1, K2),
+                phases=True)
         finally:
             R.resolve_rank_dominate_resident = orig
         check_resident_counts('resident %d' % size, steps, on['counts'])
@@ -1168,7 +1209,7 @@ def resident_phase(torch, card, workloads, native, NativeDocPool, R, drive,
             off, _, m_off = drive('resident off %d gpu' % size,
                                   lambda: run_stream(torch, trace, off_pool,
                                                      steps, payloads),
-                                  need=(K1, K2))
+                                  need=(K1, K2), phases=True)
         finally:
             native.RESIDENT = None
         if m_off.get('resident.dispatches', 0):
@@ -1246,10 +1287,10 @@ def replica_phase(torch, card, workloads, drive, K1, K3, union_pool):
     rs = BatchedReplicaSet(N_REPLICAS)
     _, wall_load, m_load = drive('config5 replicas load gpu', lambda: [
         rs.apply_batch(r, by_doc) for r, by_doc in enumerate(by_replica)],
-        need=())
+        need=(), phases=True)
     if rs.converged():
         raise AssertionError('config5 replicas: converged before catch-up')
-    rounds, wall, m = drive(CATCH_UP, rs.catch_up, need=(K3,))
+    rounds, wall, m = drive(CATCH_UP, rs.catch_up, need=(K3,), phases=True)
     n_changes = sum(len(chs) for chs in union.values())
     if not rs.converged() or rounds[-1] != 0 or \
             sum(rounds) != n_changes * (N_REPLICAS - 1):
@@ -1577,6 +1618,13 @@ def _prom_counter(body, name):
     return float(m.group(1)) if m else 0.0
 
 
+def _prom_phase_calls(body, name):
+    """A phase counter of a `--trace` server's exposition."""
+    m = re.search(r'^amtpu_phase_calls_total\{phase="%s"\} (\S+)$'
+                  % re.escape(name), body, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
 def _gateway(device, path, **kw):
     from automerge_tpu_torch.scheduler import GatewayServer
     from automerge_tpu_torch.sidecar.server import SidecarBackend
@@ -1694,7 +1742,9 @@ def serving_phase(card, workloads, drive, K1, K2, K3):
     try:
         # -- (a) the serve-check shape, a server subprocess ---------------
         t0 = time.perf_counter()
-        proc = P.spawn_server('a.sock', 'cuda', deadline_s=300, cwd=work)
+        # --trace: the scheduler's tallies are phase counters
+        proc = P.spawn_server('a.sock', 'cuda', args=('--trace',),
+                              deadline_s=300, cwd=work)
         try:
             log('serve a: server subprocess up in %.1f s on %s'
                 % (time.perf_counter() - t0, card))
@@ -1715,7 +1765,7 @@ def serving_phase(card, workloads, drive, K1, K2, K3):
                                  'CPU gateway\'s serial run')
         sched = health['scheduler']
         occ = sched['occupancy']
-        trivial = _prom_counter(body, 'sched.trivial_rows')
+        trivial = _prom_phase_calls(body, 'sched.trivial_rows')
         if not occ['p50'] > 4:
             raise AssertionError('serve a: median occupancy %r' % occ)
         if sched['fallback_oracle'] or sched['live_batch_handles'] or \
@@ -3308,6 +3358,173 @@ def mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB, payload3,
     return report
 
 
+#: phase 17: the sanitizer lane's workload (`tests/test_analysis.py::
+#: BATCH_WORKLOAD`: each doc's 8 actors set one key a round) at 4,096
+#: docs, so 32,768 fresh clock rows a round, and the device wait queued
+#: ahead of the deliberate alias's copy (`torch.cuda._sleep` cycles, about
+#: 0.1 s at the H100's clock)
+SANITIZE_DOCS = 4096
+SANITIZE_ROUNDS = (1, 2, 3)
+ALIAS_SLEEP_CYCLES = 200000000
+
+
+def sanitize_round(r, docs=SANITIZE_DOCS, actors=8):
+    root = '00000000-0000-0000-0000-000000000000'
+    return {'doc%d' % d: [{'actor': 'w%d' % a, 'seq': r, 'deps': {},
+                           'ops': [{'action': 'set', 'obj': root,
+                                    'key': 'shared%d' % (r % 3),
+                                    'value': 'a%d r%d' % (a, r)}]}
+                          for a in range(actors)]
+            for d in range(docs)}
+
+
+def aliasing_table(torch, np, sanitize, clock_cache, orig):
+    """`PoolClockCache.table` with its delta re-opened as an alias: the
+    staging rows live in page-locked memory and cross in a non_blocking
+    copy queued behind a long device wait on the same stream, so the
+    card reads them only after the host has poisoned them."""
+    def table(self, L, pool):
+        import ctypes
+        info = (ctypes.c_int64 * 4)()
+        L.amtpu_resclk_info(pool, info)
+        n, ap, gen = int(info[0]), int(info[1]), int(info[2])
+        if self.tab is None or gen != self.gen or ap != self.ap \
+                or n <= self.n:
+            return orig(self, L, pool)
+        if n > self.cap:
+            grown = torch.zeros((clock_cache._bucket_pow2(n, floor=64),
+                                 self.tab.shape[1]), dtype=torch.int32,
+                                device=self.device)
+            grown[:self.cap] = self.tab
+            self.tab, self.cap = grown, grown.shape[0]
+        host = torch.zeros((n - self.n, self.tab.shape[1]),
+                           dtype=torch.int32, pin_memory=True)
+        rows = host.numpy()
+        rows[:, :ap] = np.ctypeslib.as_array(L.amtpu_resclk_tab(pool),
+                                             shape=(n, ap))[self.n:n]
+        dev_rows = torch.empty(rows.shape, dtype=torch.int32,
+                               device=self.device)
+        torch.cuda._sleep(ALIAS_SLEEP_CYCLES)
+        # static-ok: dispatch-alias -- the lane's deliberate alias
+        dev_rows.copy_(host, non_blocking=True)
+        self.tab.index_copy_(0, torch.arange(self.n, n, device=self.device),
+                             dev_rows)
+        sanitize.poison(rows)
+        self.gen, self.n, self.ap = gen, n, ap
+        return self.tab
+    return table
+
+
+def analysis_phase(torch, card, drive, K1, packed):
+    """Phase 17: (a) the port's static gate on this checkout; (b) the
+    sanitizer armed on a clean card pipeline (the resident clock cache
+    engaged): the bytes equal to the unarmed run and to a CPU pool's,
+    and buffers poisoned; (c) the deliberate alias: a patched delta
+    hands the clock table the staging rows through an asynchronous copy
+    from page-locked memory, then the sanitizer poisons them, and the
+    bytes must diverge from the reference.  Returns the phase's report."""
+    import numpy as np
+
+    from automerge_tpu_torch.analysis import sanitize
+    from automerge_tpu_torch.native import NativeDocPool, clock_cache
+    t_phase = time.perf_counter()
+    report = {}
+
+    # -- (a) the static gate ----------------------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'automerge_tpu_torch.tools.static_check',
+         '--no-lint'], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    report['gate_s'] = time.perf_counter() - t0
+    out = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0 or \
+            'static-check: PASS (4 checkers)' not in out:
+        raise AssertionError('static gate: exit %d\n%s'
+                             % (proc.returncode, out[-4000:]))
+    log('static gate: 0 findings from 4 checkers in %.3f s on %s'
+        % (report['gate_s'], card))
+
+    # -- (b) the sanitizer armed on a clean pipeline ----------------------
+    payloads = [packed(sanitize_round(r)) for r in SANITIZE_ROUNDS]
+
+    def rounds(device=None):
+        pool = NativeDocPool(device=device)
+        return [pool.apply_batch_bytes(p) for p in payloads]
+    ref, report['unarmed_s'], m_ref = drive(
+        'sanitize unarmed gpu', rounds, need=(K1,), waves=None)
+    if not m_ref.get('resident.batch_delta_rows'):
+        raise AssertionError('sanitize: the resident clock cache took no '
+                             'delta (%s)' % {k: v for k, v in m_ref.items()
+                                             if k.startswith('resident.')})
+    n0 = sanitize.poisoned_count()
+    sanitize.arm()
+    try:
+        armed, report['armed_s'], m_armed = drive(
+            'sanitize armed gpu', rounds, need=(K1,), waves=None,
+            phases=True)
+    finally:
+        sanitize.arm(False)
+    report['poisoned_buffers'] = sanitize.poisoned_count() - n0
+    if armed != ref:
+        raise AssertionError('sanitize: the armed sanitizer changed the '
+                             'bytes of a clean pipeline')
+    if report['poisoned_buffers'] <= 0 or \
+            m_armed.get('sanitize.poisoned_buffers') != \
+            report['poisoned_buffers']:
+        raise AssertionError('sanitize: %d buffers poisoned, counter %r'
+                             % (report['poisoned_buffers'],
+                                m_armed.get('sanitize.poisoned_buffers')))
+    t0 = time.perf_counter()
+    if rounds('cpu') != ref:
+        raise AssertionError('sanitize: the card\'s bytes differ from a CPU '
+                             'pool\'s')
+    report['cpu_s'] = time.perf_counter() - t0
+    report['delta_rows'] = m_armed.get('resident.batch_delta_rows', 0)
+    log('sanitizer armed: %d docs x 8 actors x %d rounds, %d clock rows '
+        'delta-uploaded, %d buffers poisoned (sanitize.poisoned_buffers '
+        '%d); bytes equal to the unarmed run and to a CPU pool\'s; walls '
+        'unarmed %.3f s, armed %.3f s, CPU %.3f s on %s' % (
+            SANITIZE_DOCS, len(SANITIZE_ROUNDS), report['delta_rows'],
+            report['poisoned_buffers'],
+            m_armed.get('sanitize.poisoned_buffers'), report['unarmed_s'],
+            report['armed_s'], report['cpu_s'], card))
+
+    # -- (c) the deliberate alias on the card -----------------------------
+    orig = clock_cache.PoolClockCache.table
+    clock_cache.PoolClockCache.table = aliasing_table(
+        torch, np, sanitize, clock_cache, orig)
+    n0 = sanitize.poisoned_count()
+    sanitize.arm()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aliased = rounds()
+        torch.cuda.synchronize()
+        report['alias_s'] = time.perf_counter() - t0
+    finally:
+        sanitize.arm(False)
+        clock_cache.PoolClockCache.table = orig
+    report['alias_poisoned'] = sanitize.poisoned_count() - n0
+    diff = []
+    for got, want in zip(aliased, ref):
+        want = patch_slices(want)
+        diff.append(sum(1 for k, v in patch_slices(got).items()
+                        if want.get(k) != v))
+    report['alias_docs_differing'] = diff
+    if not any(diff):
+        raise AssertionError('sanitize: the deliberate alias was not caught '
+                             '(%d buffers poisoned)'
+                             % report['alias_poisoned'])
+    report['phase_s'] = time.perf_counter() - t_phase
+    log('deliberate alias caught: %d staging buffers poisoned behind the '
+        'in-flight copy, docs differing per round %s, %.3f s; analysis '
+        'phase %.1f s wall on %s' % (report['alias_poisoned'], diff,
+                                     report['alias_s'], report['phase_s'],
+                                     card))
+    return report
+
+
 def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
     """A pipelined batch of 256 docs on the card (254 Text docs of config
     3 and two cut config-5 docs, whose register groups climb the
@@ -3452,7 +3669,8 @@ def run(torch):
     import msgpack
     import numpy as np
 
-    from automerge_tpu_torch import native, storage, trace, workloads
+    from automerge_tpu_torch import native, storage, telemetry, trace
+    from automerge_tpu_torch import workloads
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
     from automerge_tpu_torch.ops import clock_kernel, members_kernel
@@ -3511,23 +3729,34 @@ def run(torch):
     launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0, KB: 0}
     by_path = {k: {} for k in launches}
 
-    def drive(label, fn, need, oracle=0, waves=0):
+    def drive(label, fn, need, oracle=0, waves=0, phases=False):
         """Runs one main path with the counts zeroed just before and read
         just after; fails if a kernel it needs never launched, if the
         C++ oracle resolved other than `oracle` register rows or if the
         payload went through other than `waves` waves (0: unsplit; None:
-        not checked).
+        not checked).  With `phases`, span tracing is on for the path and
+        its metrics hold the phase counters (PHASE_COUNTERS) too.
         Returns (result, wall s, metrics)."""
         torch.cuda.synchronize()
         current['path'] = label
         trace.reset()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        was_on = telemetry.enabled()
+        if phases:
+            telemetry.phase_reset()
+            telemetry.enable()
+        try:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            if phases and not was_on:
+                telemetry.disable()
         current['path'] = None
         snap = trace.snapshot()
         m = dict(snap['spans'], **snap['metrics'])
+        if phases:
+            m.update(counts_of(trace, telemetry))
         got = {k: int(m.get(k, 0)) for k in launches}
         for k in need:
             if got[k] == 0:
@@ -3791,6 +4020,10 @@ def run(torch):
     # the checks of phase 11, which hold its kernel calls too) ----------
     mesh_report = mesh_phase(torch, card, workloads, drive, K1, K2, KS, KB,
                              payload3, out_gpu)
+
+    # -- phase 17: the static gate and the alias sanitizer (before the
+    # checks of phase 11, which hold its kernel calls too) --------------
+    analysis_phase(torch, card, drive, K1, packed)
 
     # -- phase 11: kernels against their plain versions on the card ------
     for mod, name, orig in originals:

@@ -122,7 +122,14 @@ def port_twin(monkeypatch):
     monkeypatch.setenv('AMTPU_RESIDENT_CLK', '1')
     trace.reset()
     ENGINE_COUNTERS.clear()
+    # the pools' phase counters (`trace.count`) count while span tracing
+    # is on, as the JAX package's do
+    was_on = telemetry.enabled()
+    telemetry.phase_reset()
+    telemetry.enable()
     yield
+    if not was_on:
+        telemetry.disable()
     assert live_batch_handles() == 0
     assert ENGINE_COUNTERS.get('fallback.oracle', 0) == 0, ENGINE_COUNTERS
 
@@ -149,11 +156,18 @@ def port_counters():
     return m
 
 
+def sliding_over_members():
+    """Batches whose member layout a wide sliding window resolved (a
+    phase counter), since the last reset."""
+    return telemetry.phase_snapshot().get(
+        'registers.sliding_over_members', {}).get('n', 0)
+
+
 def resolved_on_device(m):
     """Rows of groups wider than the member window went up the ladder
     or, up to SLIDING_MAX rows, into one wide sliding window."""
     return any(k.startswith('fallback.escalated.w') for k in m) or \
-        m.get('registers.sliding_over_members', 0) > 0
+        sliding_over_members() > 0
 
 
 # -- tests/test_adversarial_fuzz.py ------------------------------------------
@@ -174,6 +188,7 @@ def fallback_free_on_port(run, exec_mode, expect_escalated=True):
     (which only its engine pool fed): no row took the port's C++ oracle,
     and the wide groups resolved on the device."""
     trace.reset()
+    telemetry.phase_reset()
     run()
     m = port_counters()
     if expect_escalated:
@@ -194,7 +209,7 @@ def test_concurrent_live_writers_one_key(n_writers, exec_mode):
     m = trace.metrics()
     tiers = {k for k in m if k.startswith('fallback.escalated.w')}
     if n_writers <= R.SLIDING_MAX:
-        assert not tiers and m['registers.sliding_over_members'] > 0, m
+        assert not tiers and sliding_over_members() > 0, m
     else:
         assert tiers, m
 

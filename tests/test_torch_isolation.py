@@ -97,6 +97,45 @@ def test_scan_catches_a_forbidden_import(tmp_path):
         ['automerge_tpu.ops', 'jax.numpy']
 
 
+#: JAX-package modules whose port lives under another path
+COUNTERPARTS = {
+    'native/batch_resident.py': 'native/clock_cache.py',
+    'utils/common.py': 'utils/__init__.py',
+    'utils/wire.py': 'utils/__init__.py',
+}
+#: JAX-package modules with no port module, each with its reason
+JAX_ONLY = {
+    'ops/pallas_common.py': 'the Pallas on/off latch; the port\'s kernels '
+                            'are CUDA (ops/_build.py builds them)',
+    'ops/pallas_registers.py': 'K1 in Pallas; ported as csrc/registers.cu '
+                               '(ops/registers_kernel.py)',
+    'ops/pallas_dominance.py': 'K2 in Pallas; ported as csrc/dominance.cu '
+                               '(ops/dominance_kernel.py)',
+    'utils/jaxenv.py': 'JAX platform and CPU-device setup',
+}
+JAX_MODULES = sorted(
+    os.path.relpath(p, os.path.join(ROOT, 'automerge_tpu'))
+    for p in glob.glob(os.path.join(ROOT, 'automerge_tpu', '**', '*.py'),
+                       recursive=True))
+
+
+@pytest.mark.parametrize('module', JAX_MODULES)
+def test_every_jax_module_has_a_port_counterpart(module):
+    """The port does all that the JAX package does: each JAX module has
+    its port module (same path unless COUNTERPARTS names another) or a
+    reasoned JAX_ONLY entry."""
+    if module in JAX_ONLY:
+        assert module not in COUNTERPARTS
+        return
+    port = COUNTERPARTS.get(module, module)
+    assert os.path.exists(os.path.join(ROOT, 'automerge_tpu_torch', port)), \
+        '%s has no port module %s' % (module, port)
+
+
+def test_counterpart_map_names_existing_jax_modules():
+    assert set(COUNTERPARTS) | set(JAX_ONLY) <= set(JAX_MODULES)
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present: the default pool is valid')

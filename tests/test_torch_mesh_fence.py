@@ -43,6 +43,7 @@ from automerge_tpu_torch.native.mesh_pool import MeshDocPool
 METRICS = ('mesh.sp_engaged', 'mesh.sp_fenced', 'resident.dispatches')
 N = 600
 jax_trace.ENABLED = True
+telemetry.enable()
 native.RESIDENT = True
 
 
@@ -57,8 +58,12 @@ def jax_counts():
 
 def port_counts():
     snap = telemetry.metrics_snapshot()
-    return {k: snap[k] for k in METRICS + ('resident.sharded_dispatch',)
-            if snap.get(k)}
+    out = {k: snap[k] for k in METRICS if snap.get(k)}
+    n = telemetry.phase_snapshot().get('resident.sharded_dispatch',
+                                       {}).get('n')
+    if n:
+        out['resident.sharded_dispatch'] = n
+    return out
 
 
 def run(pool, kind, body):
@@ -85,6 +90,7 @@ for arm, sp_min in (('sharded', 16), ('fenced', None)):
         jax_telemetry.metrics_reset()
         jax_trace.reset()
         telemetry.metrics_reset()
+        telemetry.phase_reset()
         want = run(jax_pool, kind, body)
         got = run(port, kind, body)
         record.append({'single': single, 'equal': got == want,

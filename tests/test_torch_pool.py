@@ -25,7 +25,7 @@ import pytest
 
 from automerge_tpu import trace as jax_trace
 from automerge_tpu.native import NativeDocPool as JaxPool
-from automerge_tpu_torch import native, storage, trace, workloads
+from automerge_tpu_torch import native, storage, telemetry, trace, workloads
 from automerge_tpu_torch.native import NativeDocPool, _lib, live_batch_handles
 from automerge_tpu_torch.ops import registers as R
 from automerge_tpu_torch.ops import registers_kernel
@@ -45,6 +45,19 @@ def kernel_path_env(monkeypatch):
         monkeypatch.setenv(k, v)
     trace.reset()
     jax_trace.metrics_reset()
+    # the port's phase counters (`trace.count`) count while span tracing
+    # is on, as the JAX package's do
+    was_on = telemetry.enabled()
+    telemetry.phase_reset()
+    telemetry.enable()
+    yield
+    if not was_on:
+        telemetry.disable()
+
+
+def phase_counts():
+    """The port's phase counters ({name: n}) since the last reset."""
+    return {k: v['n'] for k, v in telemetry.phase_snapshot().items()}
 
 
 def _fallback(metrics):
@@ -152,10 +165,11 @@ def sliding_per_wave(batch, n_waves, monkeypatch):
     total = 0
     for w in range(n_waves):
         trace.reset()
+        telemetry.phase_reset()
         NativeDocPool(device='cpu').apply_batch_bytes(_payload(
             {d: chs for d, chs in batch.items()
              if _wave_of(str(d), n_waves) == w}))
-        total += trace.metrics().get('registers.sliding_over_members', 0)
+        total += phase_counts().get('registers.sliding_over_members', 0)
     return total
 
 
@@ -177,7 +191,7 @@ def test_member_layout_resolved_by_wide_sliding_window(monkeypatch):
     assert 'fallback.oracle' not in jax_fallback
     got = trace.metrics()
     assert got['pipeline.waves'] == native.PIPELINE_DEPTH == 2
-    n_sliding = got.get('registers.sliding_over_members', 0)
+    n_sliding = phase_counts().get('registers.sliding_over_members', 0)
     assert n_sliding >= 1
     assert _fallback(got) == {}
     assert n_sliding == sliding_per_wave(batch, 2, monkeypatch)
@@ -320,7 +334,7 @@ def test_widest_sliding_window_edge(monkeypatch, n_writers, n_sets):
     assert jax_fallback == {'fallback.escalated.w16': rows}
     if rows <= R.SLIDING_MAX:
         assert windows == [R.SLIDING_MAX]
-        assert got.get('registers.sliding_over_members', 0) == 1
+        assert phase_counts().get('registers.sliding_over_members', 0) == 1
         assert _fallback(got) == {}
     else:
         assert windows == []

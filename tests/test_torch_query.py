@@ -21,7 +21,7 @@ import pytest
 
 from automerge_tpu import trace as jax_trace
 from automerge_tpu.native import NativeDocPool as JaxPool
-from automerge_tpu_torch import native, storage, trace, workloads
+from automerge_tpu_torch import native, storage, telemetry, trace, workloads
 from automerge_tpu_torch.errors import AutomergeError
 from automerge_tpu_torch.native import NativeDocPool, _lib, live_batch_handles
 from automerge_tpu_torch.utils import doc_key
@@ -702,10 +702,14 @@ def test_doc_stats_rollback_and_local_change_paths():
 def test_cxx_stage_trace_and_sched_counts():
     """Every batch adds its C++ stage CPU times to the `cxx.*` spans and
     its scheduler counts to `sched.*`, the counts the JAX pool records
-    for the same batches."""
+    for the same batches (phase counters in both packages, counted while
+    span tracing is on)."""
     jax_trace.ENABLED = True
+    was_on = telemetry.enabled()
+    telemetry.enable()
     try:
         jax_trace.reset()
+        telemetry.phase_reset()
         t = Twin()
         _interleaved_history(t)
         t.apply_batch({'q': [{'actor': 'q', 'seq': 2, 'deps': {'q': 1},
@@ -715,13 +719,16 @@ def test_cxx_stage_trace_and_sched_counts():
                               'ops': [{'action': 'set', 'obj': ROOT,
                                        'key': 'z', 'value': 0}]}]})
         want = jax_trace.snapshot()
+        phases = telemetry.phase_snapshot()
     finally:
         jax_trace.ENABLED = False
+        if not was_on:
+            telemetry.disable()
     snap = trace.snapshot()
     assert {'cxx.' + s for s in native._CXX_STAGES} <= set(snap['spans'])
     assert all(snap['spans']['cxx.' + s] >= 0 for s in native._CXX_STAGES)
-    got = {k: v for k, v in snap['metrics'].items()
-           if k.startswith('sched.')}
+    assert not any(k.startswith('sched.') for k in snap['metrics'])
+    got = {k: v['n'] for k, v in phases.items() if k.startswith('sched.')}
     assert got['sched.fast_path'] > 0 and got['sched.queued'] > 0
     assert got == {k: v['n'] for k, v in want.items()
                    if k.startswith('sched.')}

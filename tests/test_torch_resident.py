@@ -43,7 +43,7 @@ import msgpack
 from automerge_tpu import trace as jax_trace
 from automerge_tpu.errors import AutomergeError as JaxError
 from automerge_tpu.native import NativeDocPool as JaxPool
-from automerge_tpu_torch import native, trace, workloads
+from automerge_tpu_torch import native, telemetry, trace, workloads
 from automerge_tpu_torch.errors import AutomergeError
 from automerge_tpu_torch.native import NativeDocPool, live_batch_handles
 
@@ -52,6 +52,7 @@ COUNTERS = ('resident.dispatch', 'resident.full_upload_rows',
             'resident.actor_invalidation',
             'resident.cross_path_invalidation')
 jax_trace.ENABLED = True
+telemetry.enable()
 N = 600
 
 
@@ -65,8 +66,12 @@ def jax_counts():
 
 
 def port_counts():
-    m = trace.metrics()
-    return {k: m[k] for k in COUNTERS + ('resident.dispatches',) if k in m}
+    snap = telemetry.phase_snapshot()
+    out = {k: snap[k]['n'] for k in COUNTERS if k in snap}
+    n = trace.metrics().get('resident.dispatches', 0)
+    if n:
+        out['resident.dispatches'] = n
+    return out
 
 
 def run(pool, resident, kind, body):
@@ -95,6 +100,7 @@ default = NativeDocPool(device='cpu')
 record = []
 for kind, body, single in steps:
     trace.reset()
+    telemetry.phase_reset()
     jax_trace.reset()
     jax_trace.metrics_reset()
     if kind == 'bad':
@@ -116,6 +122,7 @@ for kind, body, single in steps:
     got = run(port, True, kind, body)
     counts, jcounts = port_counts(), jax_counts()
     trace.reset()
+    telemetry.phase_reset()
     plain = run(default, None, kind, body)
     record.append({'kind': kind, 'single': single, 'port': counts,
                    'jax': jcounts, 'equal': got == want,

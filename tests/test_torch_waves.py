@@ -22,7 +22,8 @@ from automerge_tpu_torch.errors import AutomergeError
 from automerge_tpu_torch.native import NativeDocPool, live_batch_handles
 from automerge_tpu_torch.utils import ROOT_ID, read_map_header
 from test_torch_pool import (  # noqa: F401
-    _fallback, _payload, _wave_of, kernel_path_env, sliding_per_wave)
+    _fallback, _payload, _wave_of, kernel_path_env, phase_counts,
+    sliding_per_wave)
 
 
 @pytest.fixture
@@ -62,7 +63,7 @@ def test_result_bytes_equal_whole(depth, workload, monkeypatch):
         assert port_fb == jax_fb
     else:
         assert port_fb == {} and 'fallback.oracle' not in jax_fb
-        got = trace.metrics().get('registers.sliding_over_members', 0)
+        got = phase_counts().get('registers.sliding_over_members', 0)
         assert got >= 1
         assert got == sliding_per_wave(batch, max(depth, 1), monkeypatch)
 
