@@ -86,6 +86,7 @@ from ..errors import AutomergeError, RangeError
 from ..ops import list_rank
 from ..ops import registers as register_ops
 from ..ops.dominance_kernel import dominance_grouped_auto
+from ..ops.linearize_kernel import linearize_auto
 from ..telemetry import attribution, recorder
 from ..utils import doc_key, map_header, read_map_header
 from ._lib import lib, loaded, take_buf
@@ -1149,7 +1150,7 @@ class NativeDocPool:
                 r['d'], r['si'], mem_dev, ctx['weff'],
                 want_visible_before=False)
         elif Lp > 0:
-            rank = _to_host(list_rank.linearize(
+            rank = _to_host(linearize_auto(
                 e['obj'], e['par'], e['ctr'], e['act'], e['val'], n_iters,
                 sort_idx=e['lsi']))
         return reg_out, rank

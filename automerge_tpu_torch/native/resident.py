@@ -6,8 +6,8 @@ resident minimum (16,384 elements by default) can leave that object's
 arena columns on the device: parent, counter and actor rank (int32) and
 visibility (float32), at the dom block's padded capacity.  The host then
 uploads only what the batch changed, and the sibling sort runs on the
-device (`ops.list_rank.linearize` with no `sort_idx`).  The cache keys
-on (doc id, object sid).  Its consistency contract:
+device (`ops.linearize_kernel.linearize_auto` with no `sort_idx`).  The
+cache keys on (doc id, object sid).  Its consistency contract:
 
 * Appends are found by length: rows [cached n, current n) upload as one
   slice copy.  A shrink (a rolled-back batch) or a new capacity (the

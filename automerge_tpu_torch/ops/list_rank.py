@@ -8,9 +8,10 @@ reorders existing elements, so the final ranks hold at every step of the
 batch, and per-op list indexes become dominance counts: "visible
 elements of the same object ranked below at time t".
 
-`dominance_grouped` is the plain version of the dominance CUDA kernel
-(`csrc/dominance.cu`); `dominance_kernel.dominance_grouped_auto` picks
-between the two by device.
+`linearize` is the plain version of the linearize CUDA kernel
+(`csrc/linearize.cu`) and `dominance_grouped` that of the dominance
+kernel (`csrc/dominance.cu`); `linearize_kernel.linearize_auto` and
+`dominance_kernel.dominance_grouped_auto` pick by device.
 """
 
 import torch

@@ -281,10 +281,10 @@ def resolve_and_rank(group, time, actor, seq, clock_table, clock_idx,
                      lin_sort, n_iters, window=WINDOW, mem_idx=None):
     """Register resolution + RGA linearization (the pool's layout-
     fallback path; dominance runs after the host mid phase)."""
-    from .list_rank import linearize
+    from .linearize_kernel import linearize_auto
     reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
                    sort_idx, mem_idx, window, want_visible_before=False)
-    rank = linearize(eobj, epar, ectr, eact, evalid, n_iters,
+    rank = linearize_auto(eobj, epar, ectr, eact, evalid, n_iters,
                      sort_idx=lin_sort)
     return reg, rank
 
@@ -309,10 +309,10 @@ def resolve_rank_dominate(group, time, actor, seq, clock_table, clock_idx,
     register word followed by the dominance indexes, for one transfer.
     """
     from .dominance_kernel import dominance_grouped_auto
-    from .list_rank import linearize
+    from .linearize_kernel import linearize_auto
     reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
                    sort_idx, mem_idx, window)
-    rank = linearize(eobj, epar, ectr, eact, evalid, n_iters,
+    rank = linearize_auto(eobj, epar, ectr, eact, evalid, n_iters,
                      sort_idx=lin_sort)
     L = rank.shape[0]
     er = torch.where(er_src >= 0, rank[er_src.clamp(0, L - 1).long()], -1)
@@ -354,12 +354,12 @@ def resolve_rank_dominate_resident(group, time, actor, seq, clock_table,
     member-mode batch resident).  Returns (reg, rank, combo) as
     `resolve_rank_dominate` does."""
     from .dominance_kernel import dominance_grouped_auto
-    from .list_rank import linearize
+    from .linearize_kernel import linearize_auto
     reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
                    sort_idx, None, window)
     C = epar.shape[0]
     valid = torch.arange(C, device=epar.device) < n_elems
-    rank = linearize(torch.zeros_like(epar), epar, ectr, eact, valid,
+    rank = linearize_auto(torch.zeros_like(epar), epar, ectr, eact, valid,
                      n_iters)
     er = torch.where(valid, rank, -1)[None, :]
     orank, od = dominance_op_inputs(reg, rank, oe, dom_src, ov)
@@ -387,7 +387,7 @@ def resolve_rank_dominate_resident_sharded(
     from .dominance_kernel import (block_count_bound,
                                    dominance_indexes_block_auto,
                                    object_starts, on_device)
-    from .list_rank import linearize
+    from .linearize_kernel import linearize_auto
     reg = _resolve(group, time, actor, seq, clock_table, clock_idx, is_del,
                    sort_idx, None, window)
     first = group.device
@@ -396,7 +396,8 @@ def resolve_rank_dominate_resident_sharded(
     C = par.shape[0]
     Ll = C // len(ev)
     valid = torch.arange(C, device=first) < n_elems
-    rank = linearize(torch.zeros_like(par), par, ctr, act, valid, n_iters)
+    rank = linearize_auto(torch.zeros_like(par), par, ctr, act, valid,
+                          n_iters)
     oe1, ds1, ov1 = oe[0], dom_src[0], ov[0]
     orank, od = dominance_op_inputs(reg, rank, oe1, ds1, ov1)
     oobj = torch.where(ov1, 0, -2).to(torch.int32)

@@ -12,7 +12,7 @@ Per batch (the stages keep the JAX engine's spans, `engine.*`):
   2. resolve:    flat LWW register resolution across all docs' assign ops
                  at WINDOW = 8 (K1, `csrc/registers.cu`)
   3. linearize:  RGA list ranking over all touched list objects
-                 (`ops/list_rank.linearize`, torch ops) and per-op
+                 (`csrc/linearize.cu`, `ops/linearize_kernel.py`) and per-op
                  dominance indexes per object (K2, `csrc/dominance.cu`)
   4. emit:       host pass assembling the reference-format patches; host
                  mirrors (registers, inbound links, visible sequences) are
@@ -40,6 +40,7 @@ from ..backend.op_set import copy_change
 from ..errors import AutomergeError, RangeError
 from ..ops import list_rank, registers as register_ops
 from ..ops.dominance_kernel import dominance_grouped_auto
+from ..ops.linearize_kernel import linearize_auto
 from ..ops.registers_kernel import resolve_registers_auto
 from ..utils import ROOT_ID
 from .columnar import Interner, actor_rank_table, densify_clock
@@ -780,7 +781,7 @@ class TPUDocPool:
             devtime = telemetry.devtime_on()
             t0 = time.perf_counter() if devtime else 0.0
             # doubling depth bound: DFS chains never cross objects
-            rank = list_rank.linearize(
+            rank = linearize_auto(
                 self._up(obj_arr), self._up(par_arr), self._up(ctr_arr),
                 self._up(act_arr), self._up(val_arr),
                 n_iters=list_rank.ceil_log2(max(max_obj_len, 1)) + 1,

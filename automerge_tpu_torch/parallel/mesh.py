@@ -45,6 +45,7 @@ from ..ops.dominance_kernel import (block_count_bound,
                                     dominance_indexes_auto,
                                     dominance_indexes_block_auto,
                                     object_starts, on_device)
+from ..ops.linearize_kernel import linearize_auto
 from ..ops.registers import WINDOW
 from ..ops.registers_kernel import resolve_registers_auto
 from . import replica
@@ -110,7 +111,7 @@ def _linearize(eo, ep, ec, ea, ev, n_iters):
     first row (d * L).  Returns rank [D, L]."""
     D, L = eo.shape
     base = torch.arange(D, device=eo.device, dtype=torch.int32)[:, None] * L
-    rank = list_rank.linearize(
+    rank = linearize_auto(
         (eo + base).reshape(-1), torch.where(ep >= 0, ep + base,
                                              -1).reshape(-1),
         ec.reshape(-1), ea.reshape(-1), ev.reshape(-1), n_iters)

@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
-port's C++ host runtime and its six CUDA kernel sources from this
+port's C++ host runtime and its seven CUDA kernel sources from this
 checkout (registers K1, dominance K2, members K3, the causal schedule
 `clock.cu`, the whole-doc dominance route `dominance_indexes.cu`, the
-sp-block route `dominance_block.cu`), then:
+sp-block route `dominance_block.cu`, the RGA linearize kernel
+`linearize.cu`, which every path with list work runs), then:
 
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
@@ -106,10 +107,17 @@ sp-block route `dominance_block.cu`), then:
      route branches in one batch, object starts past shared memory),
      the route's branch counters against the model's per-doc flags, and
      timed as a CUDA graph of their launches (device time alone) beside
-     the wrapper's back-to-back calls.  The sp-block kernel (since PR 13)
-     is held to the plain block mode at every call of phase 16 and at
-     the route's seeded random and chunk-dependent cases split into sp =
-     2 and 4 blocks (chunks 64, 128 and 1024), whose sum must equal the
+     the wrapper's back-to-back calls.  The linearize kernel is held
+     bit-equal to the plain `list_rank.linearize` at every call of every
+     driven path (the largest call of each path timed as the wrapper, as
+     a CUDA graph and against the plain version) and at the edges of its
+     two routes (`tests/torch_linearize_cases.py`: route (a)'s limit of
+     12,288 elements and one above, L = 1, rounds too few for a chain, a
+     garbage tail, the resident arena, config 3's 786,432 rows) and on
+     four streams at once.  The sp-block kernel is held to the plain
+     block mode at every call of phase 16 and at the route's seeded
+     random and chunk-dependent cases split into sp = 2 and 4 blocks
+     (chunks 64, 128 and 1024), whose sum must equal the
      whole-doc route's output, at a batch of docs of both of its
      branches and at a one-object arena of the long text's build shape,
      each call run once under the sync-debug mode 'error' and its
@@ -976,6 +984,133 @@ def block_cases(torch, np, card):
         'host read; %d fast / %d scan docs, as the model\'s test gives, '
         'on %s' % (n_calls, branches[0], branches[1], card))
     return err
+
+
+def linearize_bound(L):
+    """Bytes: obj, parent and the sibling sort read once (4 bytes an
+    element each), valid (1) and the rank written once (4), 17 bytes an
+    element.  Operations: a sequential walk of the forest, the least any
+    order needs, a few per element (about 8), far under the bytes."""
+    t_bytes = 17 * L / H100_BYTES_PER_S
+    t_ops = 8 * L / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
+def check_linearize(torch, card, label, args, kw, timed=True):
+    """Bit-equality of the linearize kernel (`csrc/linearize.cu`) with
+    the plain `list_rank.linearize` on the card, and (`timed`) the
+    wrapper's time as the path calls it (`ms`: back-to-back calls, the
+    sibling sort on the card included where the path sorts there), the
+    same calls as a CUDA graph (`graph_ms`: device time alone; None, with
+    the reason logged, if the launch does not capture), the plain
+    version's and the bound; where the path sorts on the card, also the
+    kernel alone on that sort (`kernel_ms`) and the sort (`sort_ms`).
+    Returns (max abs error, timing dict or None)."""
+    from automerge_tpu_torch.ops import linearize_kernel, list_rank
+    got = linearize_kernel.linearize_cuda(*args, **kw)
+    want = list_rank.linearize(*args, **kw)
+    bad = int((got != want).sum())
+    err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+    if bad:
+        raise AssertionError('linearize %s: %d mismatches' % (label, bad))
+    if not timed:
+        return err, None
+    L = args[0].shape[0]
+
+    def wrapper():
+        return linearize_kernel.linearize_cuda(*args, **kw)
+    ms = device_ms(torch, wrapper)
+    try:
+        g_ms = device_ms(torch, wrapper, graph=True)
+    except RuntimeError as e:
+        g_ms = None
+        log('linearize %s: the launch does not capture in a CUDA graph '
+            '(%s)' % (label, e))
+    plain_ms = device_ms(torch, lambda: list_rank.linearize(*args, **kw),
+                         reps=2, rounds=3)
+    bound, by = linearize_bound(L)
+    out = {'shape': 'L=%d n_iters=%d sort=%s' % (
+        L, args[5], 'card' if kw.get('sort_idx') is None else 'host'),
+        'ms': ms, 'graph_ms': g_ms, 'plain_ms': plain_ms,
+        'bound_ms': bound, 'bound_by': by, 'x_bound': ms / bound}
+    if kw.get('sort_idx') is None:
+        si = list_rank.sibling_sort(*args[:5])
+        out['kernel_ms'] = device_ms(torch, lambda: linearize_kernel
+                                     .linearize_cuda(*args, sort_idx=si))
+        out['sort_ms'] = device_ms(torch, lambda: list_rank.sibling_sort(
+            *args[:5]))
+    log('linearize %s %s: mismatches 0, wrapper %.4f ms, as a CUDA graph '
+        '%s ms, plain %.4f ms, bound %.3g ms (%s), x bound %.0f%s on %s' % (
+            label, out['shape'], ms, 'n/a' if g_ms is None else
+            '%.4f' % g_ms, plain_ms, bound, by, ms / bound,
+            '' if 'kernel_ms' not in out else ', kernel alone %.4f ms, '
+            'card sort %.4f ms' % (out['kernel_ms'], out['sort_ms']), card))
+    return err, out
+
+
+def linearize_cases(torch, np, card):
+    """The linearize kernel at the edges of its design
+    (`torch_linearize_cases.edge_cases`: route (a)'s limit and one above,
+    L = 1, rounds too few for chains of 4,096 and 20,000, a garbage tail,
+    the resident arena) with the host's sort and the card's, at config
+    3's size (786,432 rows over 4,096 objects) and at the 262,144-
+    character text's resident arena (393,216 rows, the card's sort); the
+    two routes' edges and the two large shapes timed.  Then route (b) on
+    four streams from four threads at once (the mesh pool's pattern), 20
+    launches each, every result bit-equal.  Returns (largest error,
+    {label: timing})."""
+    from automerge_tpu_torch.ops import linearize_kernel, list_rank
+    from torch_linearize_cases import (edge_cases, forest_of_size,
+                                       resident_arena)
+    dev = torch.device('cuda')
+    rs = np.random.RandomState(16)
+    cases = edge_cases(rs) + [
+        ('config 3 size', forest_of_size(rs, 786432, 4096), 9),
+        ('resident arena of the 262,144-character text',
+         resident_arena(rs, 262144, 393216), 20)]
+    timed_labels = (cases[0][0], cases[1][0], cases[-2][0], cases[-1][0])
+    err, timings = 0, {}
+    for label, case, n_iters in cases:
+        c = [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+        for si in (c[5], None):
+            timed = label in timed_labels and \
+                (si is None) == label.startswith('resident')
+            e, t = check_linearize(torch, card, 'edge: ' + label, c[:5] + [
+                n_iters], {'sort_idx': si}, timed=timed)
+            err = max(err, e)
+            if t is not None:
+                timings[label] = t
+    log('linearize: %d edge cases bit-equal to the plain version with the '
+        'host\'s and the card\'s sort on %s' % (len(cases), card))
+    case = forest_of_size(np.random.RandomState(17), 100000, 500)
+    c = [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
+    want = list_rank.linearize(*c[:5], 18, sort_idx=c[5])
+    torch.cuda.synchronize()
+    bad = []
+
+    def worker(k):
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            outs = [linearize_kernel.linearize_cuda(*c[:5], 18,
+                                                    sort_idx=c[5])
+                    for _ in range(20)]
+            s.synchronize()
+        bad.extend(k for o in outs if not bool((o == want).all()))
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    if any(th.is_alive() for th in threads) or bad:
+        raise AssertionError('linearize on four streams: threads alive %s, '
+                             'mismatching streams %s' % (
+                                 [th.is_alive() for th in threads], bad))
+    log('linearize: 80 cooperative launches (L=100,000) from four threads '
+        'on four streams, bit-equal, in %.3f s on %s'
+        % (time.perf_counter() - t, card))
+    return err, timings
 
 
 def member_cases(torch, np, card):
@@ -2022,7 +2157,8 @@ FAILOVER_DOCS, FAILOVER_WRITERS, FAILOVER_OPS = 15, 5, (120, 150)
 #: lane (d), `tools/readpath_check.py` arm 2: churn flushes, forced gap;
 #: then arm 1's writer flushes
 READ_CHURN, READ_GAP, READ_AB_ROUNDS = 15, 5, 20
-FLEET_COUNTERS = ('launch.registers', 'launch.dominance', 'launch.members')
+FLEET_COUNTERS = ('launch.registers', 'launch.dominance', 'launch.members',
+                  'launch.linearize')
 
 
 def _prom_value(body, family, label, value):
@@ -2325,10 +2461,12 @@ def _fleet_routed(ctx, work):
                 n_docs += 1
         delta = {r: _deltas(before[r], after[r]) for r in paths}
         for r, dl in sorted(delta.items()):
-            if dl[K1] <= 0 or dl[K2] <= 0 or dl['fallback.oracle']:
+            if dl[K1] <= 0 or dl[K2] <= 0 or dl['launch.linearize'] <= 0 \
+                    or dl['fallback.oracle']:
                 raise AssertionError('fleet b: replica %s launched K1 %d K2 '
-                                     '%d, oracle %d' % (
+                                     '%d linearize %d, oracle %d' % (
                                          r, dl[K1], dl[K2],
+                                         dl['launch.linearize'],
                                          dl['fallback.oracle']))
             note_remote('fleet b fan-in %s' % r, dl)
         log('fleet b: %d docs of config 3 (%d ops) in %d apply_batch '
@@ -2846,7 +2984,8 @@ def frontend_phase(card, drive, K1, K2, K3, note_remote):
     server_b = {k: _prom_counter(body1, k) - _prom_counter(body0, k)
                 for k in FLEET_COUNTERS}
     if server_b['launch.registers'] != m_b.get(K1, 0) or \
-            server_b['launch.dominance'] != m_b.get(K2, 0):
+            server_b['launch.dominance'] != m_b.get(K2, 0) or \
+            server_b['launch.linearize'] != m_b.get('launch.linearize', 0):
         raise AssertionError('frontend b: the server\'s counters %r '
                              'disagree with the trace' % server_b)
     slowest = sorted(range(len(rtt)), key=lambda i: -rtt[i])[:3]
@@ -3673,7 +3812,8 @@ def run(torch):
     from automerge_tpu_torch import workloads
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
-    from automerge_tpu_torch.ops import clock_kernel, members_kernel
+    from automerge_tpu_torch.ops import clock_kernel, linearize_kernel
+    from automerge_tpu_torch.ops import members_kernel
     from automerge_tpu_torch.ops import registers as R
     from automerge_tpu_torch.ops import registers_kernel
 
@@ -3694,7 +3834,7 @@ def run(torch):
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
     captured = {'registers': [], 'dominance': [], 'members': [],
-                'schedule': [], 'indexes': [], 'block': []}
+                'schedule': [], 'indexes': [], 'block': [], 'linearize': []}
     # captured calls by the thread that made them (the fleet phase tells
     # a read replica's pool from its upstream gateway's in one process)
     by_thread = {}
@@ -3710,8 +3850,10 @@ def run(torch):
                 name = threading.current_thread().name
                 by_thread.setdefault(key, {})[name] = \
                     by_thread.get(key, {}).get(name, 0) + 1
-                captured[key].append((current['path'],
-                                      [a.clone() for a in args], dict(kw)))
+                captured[key].append((current['path'], [
+                    a.clone() if torch.is_tensor(a) else a for a in args],
+                    {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in kw.items()}))
             return orig(*args, **kw)
         setattr(mod, name, wrapper)
 
@@ -3721,12 +3863,13 @@ def run(torch):
     capture(clock_kernel, 'schedule_queue_cuda', 'schedule')
     capture(dominance_kernel, 'dominance_indexes_cuda', 'indexes')
     capture(dominance_kernel, 'dominance_indexes_block_cuda', 'block')
+    capture(linearize_kernel, 'linearize_cuda', 'linearize')
 
     K1, K2 = registers_kernel.LAUNCH_METRIC, dominance_kernel.LAUNCH_METRIC
     K3 = members_kernel.LAUNCH_METRIC
     KS, KI = clock_kernel.LAUNCH_METRIC, dominance_kernel.INDEXES_METRIC
-    KB = dominance_kernel.BLOCK_METRIC
-    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0, KB: 0}
+    KB, KL = dominance_kernel.BLOCK_METRIC, linearize_kernel.LAUNCH_METRIC
+    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0, KB: 0, KL: 0}
     by_path = {k: {} for k in launches}
 
     def drive(label, fn, need, oracle=0, waves=0, phases=False):
@@ -3735,8 +3878,12 @@ def run(torch):
         C++ oracle resolved other than `oracle` register rows or if the
         payload went through other than `waves` waves (0: unsplit; None:
         not checked).  With `phases`, span tracing is on for the path and
-        its metrics hold the phase counters (PHASE_COUNTERS) too.
-        Returns (result, wall s, metrics)."""
+        its metrics hold the phase counters (PHASE_COUNTERS) too.  A path
+        that needs a list kernel (K2, the whole-doc or the block route)
+        needs the linearize kernel too: every list index is a count over
+        its ranks.  Returns (result, wall s, metrics)."""
+        if set(need) & {K2, KI, KB}:
+            need = tuple(need) + (KL,)
         torch.cuda.synchronize()
         current['path'] = label
         trace.reset()
@@ -3988,7 +4135,7 @@ def run(torch):
         """A replica server's launches on a driven path (read over its
         socket as the difference across the path) join the kernel
         line's counts."""
-        for k in (K1, K2, K3):
+        for k in (K1, K2, K3, KL):
             n = int(counts.get(k, 0))
             launches[k] += n
             if n:
@@ -4058,7 +4205,8 @@ def run(torch):
     t_cases = time.perf_counter()
     err_s, err_i = step_cases(torch, np, card)
     err_b = block_cases(torch, np, card)
-    log('schedule, route and block seeded and edge cases: %.1f s'
+    err_l, lin_edges = linearize_cases(torch, np, card)
+    log('schedule, route, block and linearize seeded and edge cases: %.1f s'
         % (time.perf_counter() - t_cases))
 
     # at the main paths' own inputs (every call of the driven paths,
@@ -4298,14 +4446,47 @@ def run(torch):
         'branch_counts': mesh_report['block_branches'],
         'timed_path': best[1], 'library_ms': None, 'paths': seen,
         'max_abs_err': err_b}, **best[2]))
-    log('schedule, route and block main-path checks and timing: %.1f s'
-        % (time.perf_counter() - t_step_kernels))
+    # the linearize kernel at every call of the driven paths, each held
+    # bit-equal; the largest call of each path timed; the row's times are
+    # the largest timed call's
+    largest = {}
+    for i, (path, args, _kw) in enumerate(captured['linearize']):
+        j = largest.setdefault(path, i)
+        if args[0].shape[0] > captured['linearize'][j][1][0].shape[0]:
+            largest[path] = i
+    seen = {}
+    best = None
+    for i, (path, args, kw) in enumerate(captured['linearize']):
+        timed = largest[path] == i
+        e, timing = check_linearize(torch, card, 'main path %s' % path, args,
+                                    kw, timed=timed)
+        err_l = max(err_l, e)
+        if not timed:
+            continue
+        seen[path] = timing
+        if best is None or args[0].shape[0] > best[0]:
+            best = (args[0].shape[0], path, timing)
+    if best is None:
+        raise AssertionError('linearize: no main-path call was captured')
+    log('linearize: %d main-path calls of %d paths bit-equal to the plain '
+        'version on %s' % (len(captured['linearize']), len(seen), card))
+    rows['linearize'] = (0, dict({
+        'name': 'linearize', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/csrc/linearize.cu',
+        'replaces': 'automerge_tpu/ops/list_rank.py:42 (XLA, no Pallas '
+                    'kernel)',
+        'launches': launches[KL], 'launches_by_path': by_path[KL],
+        'calls_checked': len(captured['linearize']),
+        'timed_path': best[1], 'library_ms': None, 'paths': seen,
+        'edges': lin_edges, 'max_abs_err': err_l}, **best[2]))
+    log('schedule, route, block and linearize main-path checks and timing: '
+        '%.1f s' % (time.perf_counter() - t_step_kernels))
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
     rows['members'][1]['max_abs_err'] = err3
     return [rows[k][1] for k in ('registers', 'dominance', 'members',
                                  'schedule', 'dominance_indexes',
-                                 'dominance_block')]
+                                 'dominance_block', 'linearize')]
 
 
 if __name__ == '__main__':

@@ -23,6 +23,9 @@ import torch_frontend_cases as FC
 from automerge_tpu_torch import errors
 from automerge_tpu_torch.sidecar.server import SidecarBackend
 from test_adapter_replay import AdapterMirror, SidecarProcess
+from torch_threads import cap_threads
+
+cap_threads()
 
 CHARS, WRITERS = 500, 10
 

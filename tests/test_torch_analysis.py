@@ -27,6 +27,9 @@ from automerge_tpu_torch.native import NativeDocPool
 from automerge_tpu_torch.native import clock_cache
 from automerge_tpu_torch.ops import registers as register_ops
 from automerge_tpu_torch.tools import static_check
+from torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKERS = ('dispatch-alias', 'env-latch', 'lock-discipline',

@@ -16,6 +16,9 @@ import pytest
 import automerge_tpu as jam
 import automerge_tpu_torch as pam
 import torch_surface_cases as S
+from torch_threads import cap_threads
+
+cap_threads()
 
 JAX_MOD = S.jax_module('test_integration')
 PORT_MOD = S.port_module('test_integration')

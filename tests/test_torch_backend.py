@@ -21,6 +21,9 @@ from automerge_tpu_torch.backend import op_set
 from automerge_tpu_torch.native import NativeDocPool
 from automerge_tpu_torch.parallel import engine
 from automerge_tpu_torch.parallel.engine import TPUDocPool
+from torch_threads import cap_threads
+
+cap_threads()
 
 CORPUS = os.path.join(os.path.dirname(__file__), 'golden',
                       'backend_corpus.json')

@@ -32,6 +32,9 @@ from tests.torch_step_cases import (
     block_model, block_plan, block_regroups, dominance_indexes_case,
     dominance_scan_case, mixed_block_case, object_starts,
     resident_block_case)
+from torch_threads import cap_threads
+
+cap_threads()
 
 CHUNKS = (16, 64, 128, 1024)
 SPS = (1, 2, 4)

@@ -29,6 +29,9 @@ from automerge_tpu_torch.sidecar import client
 from automerge_tpu_torch.sidecar.client import CheckpointWAL, SidecarClient
 from automerge_tpu_torch.sidecar.server import SidecarBackend
 from torch_serving_cases import ROOT_ID, set_change
+from torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

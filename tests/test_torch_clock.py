@@ -21,6 +21,9 @@ from automerge_tpu.ops import clock as J
 from automerge_tpu_torch.ops import clock as P
 from automerge_tpu_torch.ops import clock_kernel
 from tests.torch_step_cases import SCHEDULE_SHAPES, schedule_case
+from torch_threads import cap_threads
+
+cap_threads()
 
 
 def t(x):

@@ -28,6 +28,9 @@ from automerge_tpu_torch.native import NativeDocPool, ShardedNativePool
 from automerge_tpu_torch.storage.coldstore import ColdStore, \
     ColdStoreCorrupt, DocEvictor
 from automerge_tpu_torch.utils import ROOT_ID
+from torch_threads import cap_threads
+
+cap_threads()
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'tools'))

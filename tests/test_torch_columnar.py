@@ -23,6 +23,9 @@ from automerge_tpu_torch import native, storage, telemetry, workloads
 from automerge_tpu_torch.storage import columnar
 from test_storage import _rand_changes
 from test_storage_native import _mangled_raws, _rand_change_dicts
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 

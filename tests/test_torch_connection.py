@@ -18,6 +18,9 @@ import automerge_tpu_torch as pam
 import torch_surface_cases as S
 from automerge_tpu import telemetry as jax_telemetry
 from automerge_tpu_torch import telemetry
+from torch_threads import cap_threads
+
+cap_threads()
 
 JAX_MOD = S.jax_module('test_connection')
 PORT_MOD = S.port_module('test_connection')

@@ -19,6 +19,9 @@ from automerge_tpu.native import NativeDocPool as JaxPool
 from automerge_tpu.sync.replica_set import BatchedReplicaSet as JaxSet
 from automerge_tpu.sync.replica_set import patch_to_tree
 from automerge_tpu_torch.sync import distributed
+from torch_threads import cap_threads
+
+cap_threads()
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,9 @@ from automerge_tpu import telemetry as jax_telemetry
 from automerge_tpu.parallel.engine import TPUDocPool as JaxEngine
 from automerge_tpu_torch import native, trace, workloads
 from automerge_tpu_torch.parallel.engine import TPUDocPool
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 

@@ -32,6 +32,9 @@ from automerge_tpu_torch.ops.members_kernel import (
 from automerge_tpu_torch.utils import ROOT_ID
 from torch_member_cases import (
     members_case, members_chunk_case, members_edge_cases)
+from torch_threads import cap_threads
+
+cap_threads()
 
 KEYS = ('winner', 'alive_after', 'conflicts', 'visible_before', 'overflow',
         'packed')

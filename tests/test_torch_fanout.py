@@ -38,6 +38,9 @@ from automerge_tpu_torch.sync import fanout
 from torch_serving_cases import (RawConn, fanout_bench_traffic,
                                  fanout_subscribers, run_fanout_bench,
                                  set_change)
+from torch_threads import cap_threads
+
+cap_threads()
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),

@@ -36,6 +36,9 @@ from automerge_tpu_torch.telemetry import fleet, httpd
 from automerge_tpu_torch.tools import amtpu_fleet, amtpu_top, amtpu_trace
 import torch_serving_cases as S
 from torch_serving_cases import RawConn, set_change
+from torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, 'tools'))

@@ -21,6 +21,9 @@ import torch_surface_cases as S
 from automerge_tpu_torch.native import NativeDocPool, ShardedNativePool
 from automerge_tpu_torch.parallel.engine import TPUDocPool
 from automerge_tpu_torch.sidecar.server import SidecarBackend
+from torch_threads import cap_threads
+
+cap_threads()
 
 MODULES = ('test_frontend', 'test_proxies', 'test_datatypes')
 CPU_POOLS = {'NativeDocPool': functools.partial(NativeDocPool, device='cpu'),

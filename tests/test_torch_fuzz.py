@@ -28,6 +28,9 @@ from automerge_tpu_torch.ops import registers as R
 from automerge_tpu_torch.utils import doc_key
 from tests import test_adversarial_fuzz as adv
 from tests import test_engine_differential as diff
+from torch_threads import cap_threads
+
+cap_threads()
 
 
 #: the `fallback.*` counters the port engines of a lane added

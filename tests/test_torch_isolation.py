@@ -23,6 +23,9 @@ import pytest
 import torch
 
 from automerge_tpu_torch.native import NativeDocPool
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, 'automerge_tpu_torch', '**',
@@ -31,7 +34,8 @@ FILES = sorted(glob.glob(os.path.join(ROOT, 'automerge_tpu_torch', '**',
      os.path.join(ROOT, 'tests', 'torch_member_cases.py'),
      os.path.join(ROOT, 'tests', 'torch_serving_cases.py'),
      os.path.join(ROOT, 'tests', 'torch_frontend_cases.py'),
-     os.path.join(ROOT, 'tests', 'torch_step_cases.py')]
+     os.path.join(ROOT, 'tests', 'torch_step_cases.py'),
+     os.path.join(ROOT, 'tests', 'torch_linearize_cases.py')]
 
 
 def _forbidden(name):

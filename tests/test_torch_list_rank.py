@@ -22,6 +22,9 @@ from automerge_tpu_torch.ops import list_rank as LR
 from automerge_tpu_torch.ops.dominance_kernel import (
     dominance_grouped_auto, dominance_grouped_cuda)
 from test_ops_kernels import TestPallasDominance as _DominanceCases
+from torch_threads import cap_threads
+
+cap_threads()
 
 
 def _forest(seed, n_objs=4, max_elems=60, pad=7):

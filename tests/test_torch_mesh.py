@@ -28,6 +28,9 @@ from automerge_tpu_torch.parallel import mesh as M
 from automerge_tpu_torch.parallel import mesh_encode as E
 from tests.torch_step_cases import (SCAN_SHAPES, dominance_indexes_case,
                                     dominance_scan_case, route_model)
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 OUT_KEYS = ('order', 'doc_clock', 'frontier', 'alive_after', 'winner',

@@ -22,6 +22,9 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,9 @@ from automerge_tpu_torch.parallel import mesh_encode as E
 from automerge_tpu_torch.parallel import replica
 from tests.torch_step_cases import (SCAN_SHAPES, dominance_indexes_case,
                                     dominance_scan_case)
+from torch_threads import cap_threads
+
+cap_threads()
 
 MESHES = ((8, 1), (4, 2), (2, 4))
 

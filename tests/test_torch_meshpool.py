@@ -23,6 +23,9 @@ from automerge_tpu_torch.native.mesh_pool import (MeshChipPool, MeshDocPool,
                                                   parse_mesh)
 from automerge_tpu_torch.sidecar.server import SidecarBackend
 from test_meshpool import _per_doc, _real_workload
+from torch_threads import cap_threads
+
+cap_threads()
 
 #: the mesh counters the two pools must agree on (the rest are times)
 MESH_COUNTS = ('mesh.batches', 'mesh.shards', 'mesh.chip_docs',

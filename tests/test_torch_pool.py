@@ -30,6 +30,9 @@ from automerge_tpu_torch.native import NativeDocPool, _lib, live_batch_handles
 from automerge_tpu_torch.ops import registers as R
 from automerge_tpu_torch.ops import registers_kernel
 from automerge_tpu_torch.utils import ROOT_ID
+from torch_threads import cap_threads
+
+cap_threads()
 
 CORPUS = os.path.join(os.path.dirname(__file__), 'golden',
                       'backend_corpus.json')

@@ -29,6 +29,9 @@ from tests.test_capacity import _changes
 from tests.test_clock_fold import _history
 from tests.test_storage import _interleaved_history, _rand_changes
 from tests.test_storage_native import _corpus_round, _stamp
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 

@@ -29,6 +29,9 @@ from automerge_tpu_torch.scheduler import GatewayServer
 from automerge_tpu_torch.scheduler import queue as port_queue
 from automerge_tpu_torch.sidecar.server import SidecarBackend
 from torch_serving_cases import RawConn, set_change
+from torch_threads import cap_threads
+
+cap_threads()
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),

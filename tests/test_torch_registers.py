@@ -27,6 +27,9 @@ from automerge_tpu_torch.ops.registers_kernel import (
     resolve_registers_auto, resolve_registers_cuda)
 from test_ops_kernels import TestEscalationLadder as _LadderCases
 from test_ops_kernels import TestPallasRegisters as _RegisterCases
+from torch_threads import cap_threads
+
+cap_threads()
 
 KEYS = ('winner', 'alive_after', 'conflicts', 'visible_before', 'overflow',
         'packed')

@@ -32,6 +32,9 @@ from automerge_tpu_torch.sync import replica_set
 from automerge_tpu_torch.sync.replica_set import BatchedReplicaSet, \
     patch_to_tree
 from tests.test_replica_set import partitioned_history
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 

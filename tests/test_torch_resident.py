@@ -30,6 +30,9 @@ from automerge_tpu.ops import registers as jax_registers
 from automerge_tpu_torch.ops import list_rank as LR
 from automerge_tpu_torch.ops import registers as R
 from test_ops_kernels import TestPallasRegisters as _RegisterCases
+from torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,6 +24,9 @@ from automerge_tpu_torch.errors import AutomergeError
 from automerge_tpu_torch.native import NativeDocPool, ShardedNativePool
 from automerge_tpu_torch.ops import registers as register_ops
 from automerge_tpu_torch.utils import ROOT_ID
+from torch_threads import cap_threads
+
+cap_threads()
 
 #: the poison doc permanent faults are pinned to
 POISON = 'd3'

@@ -28,6 +28,9 @@ from automerge_tpu_torch import native, trace, workloads
 from automerge_tpu_torch.errors import AutomergeError, RangeError
 from automerge_tpu_torch.native import NativeDocPool, ShardedNativePool
 from automerge_tpu_torch.utils import ROOT_ID
+from torch_threads import cap_threads
+
+cap_threads()
 
 MODES = ('pipeline', 'threads')
 

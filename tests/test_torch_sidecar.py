@@ -33,6 +33,9 @@ from automerge_tpu_torch import native, telemetry
 from automerge_tpu_torch.sidecar import server
 from automerge_tpu_torch.telemetry import attribution
 from torch_serving_cases import ROOT_ID, set_change
+from torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -31,6 +31,9 @@ from tests.torch_step_cases import (
     INDEXES_SHAPES, SCAN_SHAPES, SCHEDULE_SHAPES, dominance_indexes_case,
     dominance_scan_case, indexes_edge_cases, route_model, route_regroups,
     schedule_case, schedule_edge_cases, schedule_window_model)
+from torch_threads import cap_threads
+
+cap_threads()
 
 
 def t(x):

@@ -37,6 +37,9 @@ from automerge_tpu_torch.sidecar.server import SidecarBackend
 from automerge_tpu_torch.telemetry import attribution, httpd
 from torch_serving_cases import (RawConn, concurrent_stream,
                                  fanout_subscribers, set_change)
+from torch_threads import cap_threads
+
+cap_threads()
 
 JAX_KERNEL_ENV = (('AMTPU_HOST_FULL', '0'), ('AMTPU_HOST_DOM', '0'),
                   ('AMTPU_ESCALATE', '1'), ('AMTPU_HOST_REG', '0'),

@@ -22,6 +22,9 @@ from automerge_tpu import telemetry as jax_telemetry
 from automerge_tpu.native import NativeDocPool as JaxPool
 from automerge_tpu_torch import telemetry, workloads
 from automerge_tpu_torch.native import NativeDocPool
+from torch_threads import cap_threads
+
+cap_threads()
 
 ROOT = '00000000-0000-0000-0000-000000000000'
 

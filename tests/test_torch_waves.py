@@ -24,6 +24,9 @@ from automerge_tpu_torch.utils import ROOT_ID, read_map_header
 from test_torch_pool import (  # noqa: F401
     _fallback, _payload, _wave_of, kernel_path_env, phase_counts,
     sliding_per_wave)
+from torch_threads import cap_threads
+
+cap_threads()
 
 
 @pytest.fixture
