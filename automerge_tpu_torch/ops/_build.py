@@ -23,6 +23,7 @@ the stream.
 import ctypes
 import os
 import shutil
+import threading
 
 from .. import buildcache
 
@@ -70,9 +71,25 @@ KERNELS = {
             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]),
         'amtpu_torch_linearize_scratch': (ctypes.c_int64, [ctypes.c_int64]),
     },
+    'lexsort': {
+        'amtpu_torch_sibling_sort': (ctypes.c_int, [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_void_p]),
+        'amtpu_torch_register_sort': (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64] * 3 + [ctypes.c_void_p]),
+        'amtpu_torch_lexsort_scratch': (ctypes.c_int64, [ctypes.c_int64]),
+    },
 }
 
 _loaded = {}
+
+#: cooperative launches (the large-L routes of the linearize and lexsort
+#: kernels) wait for the device's previous one when it went on another
+#: stream: a grid barrier needs every block of its grid resident at once,
+#: so two such grids must not share the card (the mesh pool launches from
+#: one stream a chip thread)
+_COOP_LOCK = threading.Lock()
+#: device index -> (stream handle, event after the last cooperative launch)
+_LAST_COOP = {}
 
 
 def _nvcc():
@@ -119,6 +136,27 @@ def check(err, name):
     if err != 0:
         raise RuntimeError('CUDA kernel %s failed to launch: cudaError %d'
                            % (name, err))
+
+
+def serialized(dev, launch):
+    """Runs launch() (a cooperative launch on `dev`'s current stream)
+    after the device's previous cooperative launch, whichever kernel made
+    it.  Under CUDA graph capture the replay's stream orders the
+    launches."""
+    import torch
+    stream = torch.cuda.current_stream(dev)
+    if torch.cuda.is_current_stream_capturing():
+        return launch()
+    with _COOP_LOCK:
+        last = _LAST_COOP.get(dev.index)
+        if last is None:
+            last = (stream.cuda_stream, torch.cuda.Event())
+        elif last[0] != stream.cuda_stream:
+            stream.wait_event(last[1])
+        err = launch()
+        last[1].record(stream)
+        _LAST_COOP[dev.index] = (stream.cuda_stream, last[1])
+    return err
 
 
 def stream_of(tensor):

@@ -11,43 +11,15 @@ that fails to build or launch raises.
 """
 
 import numbers
-import threading
 
 import torch
 
 from .. import trace
-from . import _build
-from .list_rank import linearize, sibling_sort
+from . import _build, lexsort_kernel
+from .list_rank import linearize
 
 #: launches of the CUDA kernel (the trace counter's name)
 LAUNCH_METRIC = 'launch.linearize'
-
-#: cooperative launches (the large-L route) wait for the device's
-#: previous one when it went on another stream: a grid barrier needs every
-#: block of its grid resident at once, so two such grids must not share
-#: the card (the mesh pool launches from one stream a chip thread)
-_COOP_LOCK = threading.Lock()
-#: device index -> (stream handle, event after the last cooperative launch)
-_LAST_COOP = {}
-
-
-def _serialized(dev, launch):
-    """Runs launch() (a cooperative launch on `dev`'s current stream)
-    after the device's previous cooperative launch.  Under CUDA graph
-    capture the replay's stream orders the launches."""
-    stream = torch.cuda.current_stream(dev)
-    if torch.cuda.is_current_stream_capturing():
-        return launch()
-    with _COOP_LOCK:
-        last = _LAST_COOP.get(dev.index)
-        if last is None:
-            last = (stream.cuda_stream, torch.cuda.Event())
-        elif last[0] != stream.cuda_stream:
-            stream.wait_event(last[1])
-        err = launch()
-        last[1].record(stream)
-        _LAST_COOP[dev.index] = (stream.cuda_stream, last[1])
-    return err
 
 
 def linearize_cuda(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
@@ -56,7 +28,8 @@ def linearize_cuda(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
     version at any n_iters >= 0.  Inputs lie on one CUDA device: obj,
     parent, ctr, actor and sort_idx [L] int32, valid [L] bool; sort_idx,
     when given, is a permutation of [0, L) (the host's sibling sort);
-    None sorts on the card (`list_rank.sibling_sort`, torch's sort).
+    None sorts on the card (`lexsort_kernel.sibling_sort_cuda`, the
+    hand-written form of `list_rank.sibling_sort`).
     The kernel reads obj, parent, valid and the sort; ctr and actor only
     feed the sort.  Nothing is read back to the host."""
     if obj.dim() != 1:
@@ -82,8 +55,8 @@ def linearize_cuda(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
     if any(x.device != dev for x in cols + [valid] + (
             [] if sort_idx is None else [sort_idx])):
         raise ValueError('linearize inputs must share one device')
-    sort_idx = sibling_sort(*cols, valid) if sort_idx is None \
-        else sort_idx.contiguous()
+    sort_idx = lexsort_kernel.sibling_sort_cuda(*cols, valid) \
+        if sort_idx is None else sort_idx.contiguous()
     rank = torch.empty((L,), dtype=torch.int32, device=dev)
     if L == 0:
         return rank
@@ -99,7 +72,8 @@ def linearize_cuda(obj, parent, ctr, actor, valid, n_iters, sort_idx=None):
             None if scratch is None else scratch.data_ptr(), L,
             int(n_iters), _build.stream_of(rank))
     with torch.cuda.device(dev):
-        err = launch() if scratch is None else _serialized(dev, launch)
+        err = launch() if scratch is None else _build.serialized(dev,
+                                                                   launch)
     _build.check(err, 'linearize')
     trace.metric(LAUNCH_METRIC)
     return rank

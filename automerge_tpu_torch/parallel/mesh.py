@@ -45,6 +45,7 @@ from ..ops.dominance_kernel import (block_count_bound,
                                     dominance_indexes_auto,
                                     dominance_indexes_block_auto,
                                     object_starts, on_device)
+from ..ops.lexsort_kernel import register_sort_auto
 from ..ops.linearize_kernel import linearize_auto
 from ..ops.registers import WINDOW
 from ..ops.registers_kernel import resolve_registers_auto
@@ -67,6 +68,20 @@ def _op_metadata(elem_obj, elem_rank, op_elem, op_valid):
     return oobj.to(torch.int32), orank.to(torch.int32)
 
 
+def register_order(rg, rt, n_groups):
+    """The register rows of D docs ([D, T] int32 rg, rt) in (doc, group,
+    time) order with each doc's padding (group -1) first, stable: two
+    stable sorts.  Per doc it is the JAX step's `jnp.lexsort((time,
+    group))` offset by the doc's first row.  The plain version of
+    `lexsort_kernel.register_sort_cuda`.  Returns [D * T] int32."""
+    D, T = rg.shape
+    docs = torch.arange(D, device=rg.device, dtype=torch.int64)[:, None]
+    perm = torch.sort(rt.reshape(-1), stable=True).indices
+    key = (docs * (n_groups + 1) + rg.to(torch.int64) + 1).reshape(-1)
+    perm = perm[torch.sort(key[perm], stable=True).indices]
+    return perm.to(torch.int32)
+
+
 def _registers(rg, rt, ra, rs, rc, rd, n_groups):
     """`resolve_registers` per doc ([D, T] columns, rc [D, T, A]) as one
     launch over the flattened docs; `n_groups` bounds the docs' group ids
@@ -75,17 +90,14 @@ def _registers(rg, rt, ra, rs, rc, rd, n_groups):
     as rows within the doc."""
     D, T = rg.shape
     dev = rg.device
-    i64 = torch.int64
-    docs = torch.arange(D, device=dev, dtype=i64)[:, None]
+    docs = torch.arange(D, device=dev, dtype=torch.int64)[:, None]
     group = torch.where(rg >= 0, docs * n_groups + rg, -1)
-    # (doc, group, time) with each doc's padding first: two stable sorts
-    perm = torch.sort(rt.reshape(-1), stable=True).indices
-    key = (docs * (n_groups + 1) + rg.to(i64) + 1).reshape(-1)
-    perm = perm[torch.sort(key[perm], stable=True).indices]
+    # (doc, group, time) with each doc's padding first
+    perm = register_sort_auto(rg, rt, n_groups)
     A = rc.shape[2]
     out = resolve_registers_auto(
         group.reshape(-1).to(torch.int32), rt.reshape(-1), ra.reshape(-1),
-        rs.reshape(-1), rd.reshape(-1), None, perm.to(torch.int32),
+        rs.reshape(-1), rd.reshape(-1), None, perm,
         rc.reshape(D * T, A), torch.arange(D * T, device=dev,
                                            dtype=torch.int32),
         window=WINDOW)

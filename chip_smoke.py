@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and g++.  It builds the
-port's C++ host runtime and its seven CUDA kernel sources from this
+port's C++ host runtime and its eight CUDA kernel sources from this
 checkout (registers K1, dominance K2, members K3, the causal schedule
 `clock.cu`, the whole-doc dominance route `dominance_indexes.cu`, the
 sp-block route `dominance_block.cu`, the RGA linearize kernel
-`linearize.cu`, which every path with list work runs), then:
+`linearize.cu`, which every path with list work runs, and the stable
+sort `lexsort.cu`, which every path that sorts on the card runs: the
+step and the resident routes), then:
 
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
@@ -114,7 +116,18 @@ sp-block route `dominance_block.cu`, the RGA linearize kernel
      two routes (`tests/torch_linearize_cases.py`: route (a)'s limit of
      12,288 elements and one above, L = 1, rounds too few for a chain, a
      garbage tail, the resident arena, config 3's 786,432 rows) and on
-     four streams at once.  The sp-block kernel is held to the plain
+     four streams at once.  The lexsort kernel is held bit-equal (the
+     whole permutation, garbage and padding rows included) to its plain
+     versions (`list_rank.sibling_sort`, `mesh.register_order`) at every
+     call of both entry points on every driven path (the largest call of
+     each path timed as the wrapper and as a CUDA graph beside torch's
+     stable sorts, `library_ms`), at the edges of its design
+     (`tests/torch_lexsort_cases.py`), one call of each entry point on
+     each route counted as one kernel by the profiler (right after phase
+     10), and on four
+     streams at once beside the linearize kernel's cooperative grid; a
+     resident dispatch must launch fewer than 69 kernels (the count with
+     torch's sorts).  The sp-block kernel is held to the plain
      block mode at every call of phase 16 and at the route's seeded
      random and chunk-dependent cases split into sp = 2 and 4 blocks
      (chunks 64, 128 and 1024), whose sum must equal the
@@ -295,6 +308,10 @@ CATCH_UP = 'config5 catch-up gpu'
 #: timed only up to the second base pass (the first batch's calls)
 FIRST_BATCH_TIMED = (CATCH_UP, 'faults pipeline gpu', 'faults threads gpu')
 N_REPLICAS = 64
+#: kernels one resident dispatch launched while torch's four stable sorts
+#: did its sibling sort (PERF.md §5); the lexsort kernel's one launch must
+#: leave fewer
+RESIDENT_KERNELS_BEFORE = 69
 RESIDENT_COUNTERS = ('resident.dispatches', 'resident.full_upload_rows',
                      'resident.delta_upload_rows', 'resident.no_upload',
                      'resident.actor_invalidation',
@@ -1005,9 +1022,12 @@ def check_linearize(torch, card, label, args, kw, timed=True):
     same calls as a CUDA graph (`graph_ms`: device time alone; None, with
     the reason logged, if the launch does not capture), the plain
     version's and the bound; where the path sorts on the card, also the
-    kernel alone on that sort (`kernel_ms`) and the sort (`sort_ms`).
+    kernel alone on that sort (`kernel_ms`), the sort (`sort_ms`: the
+    lexsort kernel's wrapper) and torch's four stable sorts in its place
+    (`torch_sort_ms`, the plain `list_rank.sibling_sort`).
     Returns (max abs error, timing dict or None)."""
-    from automerge_tpu_torch.ops import linearize_kernel, list_rank
+    from automerge_tpu_torch.ops import (lexsort_kernel, linearize_kernel,
+                                         list_rank)
     got = linearize_kernel.linearize_cuda(*args, **kw)
     want = list_rank.linearize(*args, **kw)
     bad = int((got != want).sum())
@@ -1035,17 +1055,21 @@ def check_linearize(torch, card, label, args, kw, timed=True):
         'ms': ms, 'graph_ms': g_ms, 'plain_ms': plain_ms,
         'bound_ms': bound, 'bound_by': by, 'x_bound': ms / bound}
     if kw.get('sort_idx') is None:
-        si = list_rank.sibling_sort(*args[:5])
+        si = lexsort_kernel.sibling_sort_cuda(*args[:5])
         out['kernel_ms'] = device_ms(torch, lambda: linearize_kernel
                                      .linearize_cuda(*args, sort_idx=si))
-        out['sort_ms'] = device_ms(torch, lambda: list_rank.sibling_sort(
-            *args[:5]))
+        out['sort_ms'] = device_ms(torch, lambda: lexsort_kernel
+                                   .sibling_sort_cuda(*args[:5]))
+        out['torch_sort_ms'] = device_ms(torch, lambda: list_rank
+                                         .sibling_sort(*args[:5]))
     log('linearize %s %s: mismatches 0, wrapper %.4f ms, as a CUDA graph '
         '%s ms, plain %.4f ms, bound %.3g ms (%s), x bound %.0f%s on %s' % (
             label, out['shape'], ms, 'n/a' if g_ms is None else
             '%.4f' % g_ms, plain_ms, bound, by, ms / bound,
             '' if 'kernel_ms' not in out else ', kernel alone %.4f ms, '
-            'card sort %.4f ms' % (out['kernel_ms'], out['sort_ms']), card))
+            'card sort %.4f ms (torch\'s sorts %.4f ms)' % (
+                out['kernel_ms'], out['sort_ms'], out['torch_sort_ms']),
+            card))
     return err, out
 
 
@@ -1111,6 +1135,164 @@ def linearize_cases(torch, np, card):
         'on four streams, bit-equal, in %.3f s on %s'
         % (time.perf_counter() - t, card))
     return err, timings
+
+
+def lexsort_bound(site, L):
+    """Bytes: the sibling sort reads obj, parent, ctr and actor (4 bytes a
+    row each) and valid (1) and writes the permutation (4), 21 bytes a
+    row; the register order reads rg and rt and writes the permutation,
+    12.  Operations: the composite key's few a row (about 8; a radix sort
+    compares nothing), far under the bytes."""
+    t_bytes = (21 if site == 'sibling' else 12) * L / H100_BYTES_PER_S
+    t_ops = 8 * L / H100_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
+def lexsort_entry(site):
+    """(kernel wrapper, plain version) of one lexsort entry point."""
+    from automerge_tpu_torch.ops import lexsort_kernel, list_rank
+    from automerge_tpu_torch.parallel import mesh
+    if site == 'sibling':
+        return lexsort_kernel.sibling_sort_cuda, list_rank.sibling_sort
+    return lexsort_kernel.register_sort_cuda, mesh.register_order
+
+
+def check_lexsort(torch, card, label, site, args, timed=True):
+    """Bit-equality of the lexsort kernel (`csrc/lexsort.cu`) at one entry
+    point (`site`: 'sibling' or 'register') with its plain version on the
+    card, the whole permutation (invalid and padding rows included), and
+    (`timed`) the wrapper back to back (`ms`), the same calls as a CUDA
+    graph (`graph_ms`; a launch that does not capture fails), torch's
+    stable sorts of the same function (`library_ms`: the plain version,
+    the four or two sorts the kernel replaces; `plain_ms` is that call)
+    and the bound.  Returns (max abs error, timing dict or None)."""
+    kernel, plain = lexsort_entry(site)
+    got = kernel(*args)
+    want = plain(*args)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError('lexsort %s %s: %s %s, plain %s %s' % (
+            site, label, tuple(got.shape), got.dtype, tuple(want.shape),
+            want.dtype))
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError('lexsort %s %s: %d mismatches' % (site, label,
+                                                               bad))
+    err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+    if not timed:
+        return err, None
+    L = args[0].numel()
+    ms = device_ms(torch, lambda: kernel(*args))
+    g_ms = device_ms(torch, lambda: kernel(*args), graph=True)
+    lib_ms = device_ms(torch, lambda: plain(*args))
+    bound, by = lexsort_bound(site, L)
+    shape = 'L=%d' % L if site == 'sibling' else 'D=%d T=%d' % tuple(
+        args[0].shape)
+    log('lexsort %s %s %s: mismatches 0, wrapper %.4f ms, as a CUDA graph '
+        '%.4f ms, torch\'s sorts (library, plain) %.4f ms, bound %.3g ms '
+        '(%s), x bound %.0f on %s' % (site, label, shape, ms, g_ms, lib_ms,
+                                      bound, by, ms / bound, card))
+    return err, {'entry': site, 'shape': shape, 'ms': ms, 'graph_ms': g_ms,
+                 'plain_ms': lib_ms, 'library_ms': lib_ms, 'bound_ms': bound,
+                 'bound_by': by, 'x_bound': ms / bound}
+
+
+def cases_on_card(torch, np):
+    """case -> its numpy arrays on the card (other items as they are)."""
+    dev = torch.device('cuda')
+    return lambda case: [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                         if isinstance(x, np.ndarray) else x for x in case]
+
+
+def lexsort_launch_counts(torch, np, card):
+    """(kernels, copies and fills) that one call of each lexsort entry
+    point puts on the card on each route, from the profiler (right after
+    phase 10: by phase 11 the profiler sees no CUDA activity); fails
+    unless a measured call is one kernel."""
+    from torch_lexsort_cases import ONE_CTA_MAX, sized_forest
+    on_card = cases_on_card(torch, np)
+    rs = np.random.RandomState(20)
+
+    def register(D, T):
+        return on_card((rs.randint(-1, 9, (D, T)).astype(np.int32),
+                        rs.randint(0, 99, (D, T)).astype(np.int32), 9))
+    per_call = {}
+    for name, site, args in (
+            ('sibling L=%d (route a)' % ONE_CTA_MAX, 'sibling',
+             on_card(sized_forest(rs, ONE_CTA_MAX))),
+            ('sibling L=65536 (route b)', 'sibling',
+             on_card(sized_forest(rs, 65536))),
+            ('register D=1 T=%d (route a)' % ONE_CTA_MAX, 'register',
+             register(1, ONE_CTA_MAX)),
+            ('register D=2048 T=32 (route b)', 'register',
+             register(2048, 32))):
+        kernel = lexsort_entry(site)[0]
+        got = count_launches(torch, lambda: kernel(*args))
+        per_call[name] = got
+        if got is not None and got[0] != 1:
+            raise AssertionError('lexsort %s: %d kernels a call, not one'
+                                 % (name, got[0]))
+    log('lexsort: (kernels, copies and fills) of one call: %s on %s'
+        % (per_call, card))
+    return per_call
+
+
+def lexsort_cases(torch, np, card):
+    """The lexsort kernel at the edges of its design
+    (`tests/torch_lexsort_cases.py`: both entry points; L = 0 and 1, a warp
+    and a tile +-1, route (a)'s limit and one above, a text typed at its
+    head (one sibling group of every row), a hot register key of 700
+    rows, all-padding docs, garbage in invalid rows, padding equal on
+    every key, counters, actors and times at INT_MIN, objects at 2**30,
+    any int32 everywhere), each bit-equal to its plain version; then
+    route (b) on four streams from four threads at once, each alternating
+    a sibling sort and a linearize that sorts on the card (both
+    cooperative, serialized across the streams), 20 launches each, every
+    result bit-equal.  Returns (largest error, {'edges'})."""
+    from automerge_tpu_torch.ops import lexsort_kernel, linearize_kernel
+    from automerge_tpu_torch.ops import list_rank
+    from torch_lexsort_cases import (register_cases, sibling_cases,
+                                     sized_forest)
+    on_card = cases_on_card(torch, np)
+    err, n = 0, 0
+    for site, cases in (('sibling', sibling_cases(np.random.RandomState(
+            18))), ('register', register_cases(np.random.RandomState(19)))):
+        for label, case in cases:
+            e, _ = check_lexsort(torch, card, 'edge: ' + label, site,
+                                 on_card(case), timed=False)
+            err = max(err, e)
+            n += 1
+    log('lexsort: %d edge cases of both entry points bit-equal to the plain '
+        'versions on %s' % (n, card))
+    c = on_card(sized_forest(np.random.RandomState(21), 100000))
+    want_sort = list_rank.sibling_sort(*c)
+    want_rank = list_rank.linearize(*c, 18)
+    torch.cuda.synchronize()
+    bad = []
+
+    def worker(k):
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            outs = [lexsort_kernel.sibling_sort_cuda(*c) if i % 2 else
+                    linearize_kernel.linearize_cuda(*c, 18)
+                    for i in range(20)]
+            s.synchronize()
+        bad.extend(k for i, o in enumerate(outs) if not bool(
+            (o == (want_sort if i % 2 else want_rank)).all()))
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    if any(th.is_alive() for th in threads) or bad:
+        raise AssertionError('lexsort on four streams: threads alive %s, '
+                             'mismatching streams %s' % (
+                                 [th.is_alive() for th in threads], bad))
+    log('lexsort: 40 sibling sorts and 40 linearize calls sorting on the '
+        'card (L=100,000, cooperative) from four threads on four streams, '
+        'bit-equal, in %.3f s on %s' % (time.perf_counter() - t, card))
+    return err, {'edges': n}
 
 
 def member_cases(torch, np, card):
@@ -1369,6 +1551,11 @@ def resident_phase(torch, card, workloads, native, NativeDocPool, R, drive,
         fn = lambda: orig(*args, **kw)  # noqa: E731
         dispatch_ms = device_ms(torch, fn)
         launches = count_launches(torch, fn)
+        if launches is not None and launches[0] >= RESIDENT_KERNELS_BEFORE:
+            raise AssertionError('resident %d: one dispatch launches %d '
+                                 'kernels, not fewer than %d' % (
+                                     size, launches[0],
+                                     RESIDENT_KERNELS_BEFORE))
         report[size] = {'resident': edit_summary(on),
                         'off': edit_summary(off),
                         'dispatch_ms': dispatch_ms,
@@ -3813,7 +4000,7 @@ def run(torch):
     from automerge_tpu_torch.native import NativeDocPool, _lib
     from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
     from automerge_tpu_torch.ops import clock_kernel, linearize_kernel
-    from automerge_tpu_torch.ops import members_kernel
+    from automerge_tpu_torch.ops import lexsort_kernel, members_kernel
     from automerge_tpu_torch.ops import registers as R
     from automerge_tpu_torch.ops import registers_kernel
 
@@ -3834,7 +4021,8 @@ def run(torch):
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
     captured = {'registers': [], 'dominance': [], 'members': [],
-                'schedule': [], 'indexes': [], 'block': [], 'linearize': []}
+                'schedule': [], 'indexes': [], 'block': [], 'linearize': [],
+                'sibling_sort': [], 'register_sort': []}
     # captured calls by the thread that made them (the fleet phase tells
     # a read replica's pool from its upstream gateway's in one process)
     by_thread = {}
@@ -3864,12 +4052,15 @@ def run(torch):
     capture(dominance_kernel, 'dominance_indexes_cuda', 'indexes')
     capture(dominance_kernel, 'dominance_indexes_block_cuda', 'block')
     capture(linearize_kernel, 'linearize_cuda', 'linearize')
+    capture(lexsort_kernel, 'sibling_sort_cuda', 'sibling_sort')
+    capture(lexsort_kernel, 'register_sort_cuda', 'register_sort')
 
     K1, K2 = registers_kernel.LAUNCH_METRIC, dominance_kernel.LAUNCH_METRIC
     K3 = members_kernel.LAUNCH_METRIC
     KS, KI = clock_kernel.LAUNCH_METRIC, dominance_kernel.INDEXES_METRIC
     KB, KL = dominance_kernel.BLOCK_METRIC, linearize_kernel.LAUNCH_METRIC
-    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0, KB: 0, KL: 0}
+    KX = lexsort_kernel.LAUNCH_METRIC
+    launches = {K1: 0, K2: 0, K3: 0, KS: 0, KI: 0, KB: 0, KL: 0, KX: 0}
     by_path = {k: {} for k in launches}
 
     def drive(label, fn, need, oracle=0, waves=0, phases=False):
@@ -3881,7 +4072,9 @@ def run(torch):
         its metrics hold the phase counters (PHASE_COUNTERS) too.  A path
         that needs a list kernel (K2, the whole-doc or the block route)
         needs the linearize kernel too: every list index is a count over
-        its ranks.  Returns (result, wall s, metrics)."""
+        its ranks.  A path that runs the step (the schedule kernel) or
+        takes the resident route needs the lexsort kernel too: both sort
+        on the card.  Returns (result, wall s, metrics)."""
         if set(need) & {K2, KI, KB}:
             need = tuple(need) + (KL,)
         torch.cuda.synchronize()
@@ -3905,6 +4098,8 @@ def run(torch):
         if phases:
             m.update(counts_of(trace, telemetry))
         got = {k: int(m.get(k, 0)) for k in launches}
+        if KS in need or m.get('resident.dispatches', 0):
+            need = tuple(need) + (KX,)
         for k in need:
             if got[k] == 0:
                 raise AssertionError('%s: kernel %s never launched' %
@@ -4124,6 +4319,7 @@ def run(torch):
     # -- phase 10: the long document, resident route and route off -----
     resident = resident_phase(torch, card, workloads, native, NativeDocPool,
                               R, drive, K1, K2)
+    sort_launches = lexsort_launch_counts(torch, np, card)
 
     # -- phase 12: the port's server on the card (before the checks of
     # phase 11, which hold its kernel calls against the plain versions) --
@@ -4135,7 +4331,7 @@ def run(torch):
         """A replica server's launches on a driven path (read over its
         socket as the difference across the path) join the kernel
         line's counts."""
-        for k in (K1, K2, K3, KL):
+        for k in (K1, K2, K3, KL, KX):
             n = int(counts.get(k, 0))
             launches[k] += n
             if n:
@@ -4206,8 +4402,9 @@ def run(torch):
     err_s, err_i = step_cases(torch, np, card)
     err_b = block_cases(torch, np, card)
     err_l, lin_edges = linearize_cases(torch, np, card)
-    log('schedule, route, block and linearize seeded and edge cases: %.1f s'
-        % (time.perf_counter() - t_cases))
+    err_x, sort_edges = lexsort_cases(torch, np, card)
+    log('schedule, route, block, linearize and lexsort seeded and edge '
+        'cases: %.1f s' % (time.perf_counter() - t_cases))
 
     # at the main paths' own inputs (every call of the driven paths,
     # each held bit-equal): kernel, wrapper and plain times of the first
@@ -4479,14 +4676,56 @@ def run(torch):
         'calls_checked': len(captured['linearize']),
         'timed_path': best[1], 'library_ms': None, 'paths': seen,
         'edges': lin_edges, 'max_abs_err': err_l}, **best[2]))
-    log('schedule, route, block and linearize main-path checks and timing: '
-        '%.1f s' % (time.perf_counter() - t_step_kernels))
+    # the lexsort kernel at every call of the driven paths, both entry
+    # points, each held bit-equal; the largest call of each path timed;
+    # the row's times are the largest timed sibling sort's
+    entries = {}
+    for key, site in (('sibling_sort', 'sibling'),
+                      ('register_sort', 'register')):
+        calls = captured[key]
+        largest = {}
+        for i, (path, args, _kw) in enumerate(calls):
+            j = largest.setdefault(path, i)
+            if args[0].numel() > calls[j][1][0].numel():
+                largest[path] = i
+        seen = {}
+        best = None
+        for i, (path, args, _kw) in enumerate(calls):
+            e, timing = check_lexsort(torch, card, 'main path %s' % path,
+                                      site, args, timed=largest[path] == i)
+            err_x = max(err_x, e)
+            if timing is None:
+                continue
+            seen[path] = timing
+            if best is None or args[0].numel() > best[0]:
+                best = (args[0].numel(), path, timing)
+        if best is None:
+            raise AssertionError('lexsort %s: no main-path call was '
+                                 'captured' % site)
+        log('lexsort %s: %d main-path calls of %d paths bit-equal to the '
+            'plain version on %s' % (site, len(calls), len(seen), card))
+        entries[site] = dict(best[2], timed_path=best[1], paths=seen,
+                             calls_checked=len(calls))
+    rows['lexsort'] = (0, dict({
+        'name': 'lexsort', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/csrc/lexsort.cu',
+        'replaces': 'automerge_tpu/ops/list_rank.py:73 and '
+                    'automerge_tpu/ops/registers.py:267 (jnp.lexsort; XLA, '
+                    'no Pallas kernel)',
+        'launches': launches[KX], 'launches_by_path': by_path[KX],
+        'entry_points': entries, 'launches_per_call': sort_launches,
+        'max_abs_err': err_x},
+        **dict(sort_edges, **{k: entries['sibling'][k] for k in (
+            'timed_path', 'shape', 'ms', 'graph_ms', 'plain_ms',
+            'library_ms', 'bound_ms', 'bound_by')})))
+    log('schedule, route, block, linearize and lexsort main-path checks and '
+        'timing: %.1f s' % (time.perf_counter() - t_step_kernels))
     rows['registers'][1]['max_abs_err'] = err1
     rows['dominance'][1]['max_abs_err'] = err2
     rows['members'][1]['max_abs_err'] = err3
     return [rows[k][1] for k in ('registers', 'dominance', 'members',
                                  'schedule', 'dominance_indexes',
-                                 'dominance_block', 'linearize')]
+                                 'dominance_block', 'linearize', 'lexsort')]
 
 
 if __name__ == '__main__':

@@ -35,7 +35,8 @@ FILES = sorted(glob.glob(os.path.join(ROOT, 'automerge_tpu_torch', '**',
      os.path.join(ROOT, 'tests', 'torch_serving_cases.py'),
      os.path.join(ROOT, 'tests', 'torch_frontend_cases.py'),
      os.path.join(ROOT, 'tests', 'torch_step_cases.py'),
-     os.path.join(ROOT, 'tests', 'torch_linearize_cases.py')]
+     os.path.join(ROOT, 'tests', 'torch_linearize_cases.py'),
+     os.path.join(ROOT, 'tests', 'torch_lexsort_cases.py')]
 
 
 def _forbidden(name):
