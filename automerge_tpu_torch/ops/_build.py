@@ -67,7 +67,7 @@ KERNELS = {
             ctypes.c_int64] * 4 + [ctypes.c_int]),
     },
     'linearize': {
-        'amtpu_torch_linearize': (ctypes.c_int, [ctypes.c_void_p] * 6 + [
+        'amtpu_torch_linearize': (ctypes.c_int, [ctypes.c_void_p] * 7 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]),
         'amtpu_torch_linearize_scratch': (ctypes.c_int64, [ctypes.c_int64]),
     },

@@ -112,11 +112,16 @@ step and the resident routes), then:
      the wrapper's back-to-back calls.  The linearize kernel is held
      bit-equal to the plain `list_rank.linearize` at every call of every
      driven path (the largest call of each path timed as the wrapper, as
-     a CUDA graph and against the plain version) and at the edges of its
-     two routes (`tests/torch_linearize_cases.py`: route (a)'s limit of
-     12,288 elements and one above, L = 1, rounds too few for a chain, a
-     garbage tail, the resident arena, config 3's 786,432 rows) and on
-     four streams at once.  The lexsort kernel is held bit-equal (the
+     a CUDA graph and against the plain version; each call's route
+     readout must name the list-ranking route, and every call on route
+     (b) must run the same 4 grid barriers at any L) and at the edges of
+     its design (`tests/torch_linearize_cases.py`: route (a)'s limit of
+     8,192 elements and one above, L = 1, rounds too few for a chain, a
+     garbage tail, the resident arena, config 3's 786,432 rows, and the
+     tour's cases at two scales: a comb, deep nesting, heads only,
+     one-element objects, malformed parents, n_iters at the route rule's
+     threshold and one below; each case's route as the model's
+     `route_of` gives it) and on four streams at once.  The lexsort kernel is held bit-equal (the
      whole permutation, garbage and padding rows included) to its plain
      versions (`list_rank.sibling_sort`, `mesh.register_order`) at every
      call of both entry points on every driven path (the largest call of
@@ -1014,9 +1019,28 @@ def linearize_bound(L):
         else 'operations'
 
 
-def check_linearize(torch, card, label, args, kw, timed=True):
+def linearize_readout(info):
+    """The kernel's route readout (`linearize_cuda(..., info=)`) as a
+    dict (`tests/torch_linearize_cases.py`'s INFO_* words)."""
+    import torch_linearize_cases as m
+    w = info.cpu().tolist()
+    return {'route': 'tour' if w[m.INFO_ROUTE] == m.ROUTE_TOUR else
+            'rounds', 'grid': bool(w[m.INFO_GRID]),
+            'barriers': w[m.INFO_BARRIERS], 'walk': w[m.INFO_WALK1],
+            'slot_walk': w[m.INFO_WALK2], 'top': w[m.INFO_TOP],
+            'top_rounds': w[m.INFO_TOP_ROUNDS], 'why': w[m.INFO_WHY],
+            'us': w[m.INFO_END] / 1e3}
+
+
+#: route (b)'s grid barriers on the list-ranking route, at every L
+LINEARIZE_TOUR_GRID_BARRIERS = 4
+
+
+def check_linearize(torch, card, label, args, kw, timed=True, route=None):
     """Bit-equality of the linearize kernel (`csrc/linearize.cu`) with
-    the plain `list_rank.linearize` on the card, and (`timed`) the
+    the plain `list_rank.linearize` on the card, its route readout (the
+    route taken must be `route` when given; route (b)'s list ranking
+    must run LINEARIZE_TOUR_GRID_BARRIERS grid barriers), and (`timed`) the
     wrapper's time as the path calls it (`ms`: back-to-back calls, the
     sibling sort on the card included where the path sorts there), the
     same calls as a CUDA graph (`graph_ms`: device time alone; None, with
@@ -1024,19 +1048,33 @@ def check_linearize(torch, card, label, args, kw, timed=True):
     version's and the bound; where the path sorts on the card, also the
     kernel alone on that sort (`kernel_ms`), the sort (`sort_ms`: the
     lexsort kernel's wrapper) and torch's four stable sorts in its place
-    (`torch_sort_ms`, the plain `list_rank.sibling_sort`).
-    Returns (max abs error, timing dict or None)."""
+    (`torch_sort_ms`, the plain `list_rank.sibling_sort`), and the kernel
+    alone as a CUDA graph (`kernel_graph_ms`).
+    Returns (max abs error, timing dict or None, readout)."""
     from automerge_tpu_torch.ops import (lexsort_kernel, linearize_kernel,
                                          list_rank)
-    got = linearize_kernel.linearize_cuda(*args, **kw)
+    info = torch.zeros((linearize_kernel.INFO_WORDS,), dtype=torch.int32,
+                       device=args[0].device)
+    got = linearize_kernel.linearize_cuda(*args, **kw, info=info)
     want = list_rank.linearize(*args, **kw)
     bad = int((got != want).sum())
     err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
     if bad:
         raise AssertionError('linearize %s: %d mismatches' % (label, bad))
-    if not timed:
-        return err, None
     L = args[0].shape[0]
+    ro = dict(linearize_readout(info), L=L)
+    if L == 0:
+        ro['route'] = route or 'tour'  # no launch, nothing read
+    if route is not None and ro['route'] != route:
+        raise AssertionError('linearize %s (L=%d n_iters=%d): took the %s '
+                             'route, not the %s' % (label, L, args[5],
+                                                   ro['route'], route))
+    if ro['route'] == 'tour' and ro['grid'] and \
+            ro['barriers'] != LINEARIZE_TOUR_GRID_BARRIERS:
+        raise AssertionError('linearize %s: %d grid barriers at L=%d' % (
+            label, ro['barriers'], L))
+    if not timed:
+        return err, None, ro
 
     def wrapper():
         return linearize_kernel.linearize_cuda(*args, **kw)
@@ -1058,6 +1096,9 @@ def check_linearize(torch, card, label, args, kw, timed=True):
         si = lexsort_kernel.sibling_sort_cuda(*args[:5])
         out['kernel_ms'] = device_ms(torch, lambda: linearize_kernel
                                      .linearize_cuda(*args, sort_idx=si))
+        out['kernel_graph_ms'] = device_ms(
+            torch, lambda: linearize_kernel.linearize_cuda(*args, sort_idx=si),
+            graph=True)
         out['sort_ms'] = device_ms(torch, lambda: lexsort_kernel
                                    .sibling_sort_cuda(*args[:5]))
         out['torch_sort_ms'] = device_ms(torch, lambda: list_rank
@@ -1066,11 +1107,29 @@ def check_linearize(torch, card, label, args, kw, timed=True):
         '%s ms, plain %.4f ms, bound %.3g ms (%s), x bound %.0f%s on %s' % (
             label, out['shape'], ms, 'n/a' if g_ms is None else
             '%.4f' % g_ms, plain_ms, bound, by, ms / bound,
-            '' if 'kernel_ms' not in out else ', kernel alone %.4f ms, '
-            'card sort %.4f ms (torch\'s sorts %.4f ms)' % (
-                out['kernel_ms'], out['sort_ms'], out['torch_sort_ms']),
+            '' if 'kernel_ms' not in out else ', kernel alone %.4f ms (as '
+            'a CUDA graph %.4f ms), card sort %.4f ms (torch\'s sorts %.4f '
+            'ms)' % (out['kernel_ms'], out['kernel_graph_ms'],
+                     out['sort_ms'], out['torch_sort_ms']),
             card))
-    return err, out
+    out['readout'] = ro
+    return err, out, ro
+
+
+def readout_summary(readouts):
+    """What the readouts of many linearize calls show: calls per route,
+    route (b)'s grid barriers on the list ranking (one value at every L)
+    and the L it ran at, the longest walks."""
+    tours = [r for r in readouts if r['route'] == 'tour']
+    grid = [r for r in tours if r['grid']]
+    return {'calls': len(readouts), 'tour': len(tours),
+            'rounds': len(readouts) - len(tours),
+            'grid_barriers': sorted({r['barriers'] for r in grid}),
+            'grid_L': sorted({r['L'] for r in grid}),
+            'longest_walk': max([r['walk'] for r in tours], default=0),
+            'longest_slot_walk': max([r['slot_walk'] for r in tours],
+                                     default=0),
+            'largest_top': max([r['top'] for r in grid], default=0)}
 
 
 def linearize_cases(torch, np, card):
@@ -1079,14 +1138,18 @@ def linearize_cases(torch, np, card):
     L = 1, rounds too few for chains of 4,096 and 20,000, a garbage tail,
     the resident arena) with the host's sort and the card's, at config
     3's size (786,432 rows over 4,096 objects) and at the 262,144-
-    character text's resident arena (393,216 rows, the card's sort); the
-    two routes' edges and the two large shapes timed.  Then route (b) on
+    character text's resident arena (393,216 rows, the card's sort), and
+    the tour's cases (`tour_cases`, at scales 1 and 8, and 120,000
+    one-element objects, more splitters than one block's shared memory
+    ranks), each on the route the model's `route_of` gives; the two
+    routes' edges and the two large shapes timed.  Then route (b) on
     four streams from four threads at once (the mesh pool's pattern), 20
     launches each, every result bit-equal.  Returns (largest error,
-    {label: timing})."""
+    {label: timing, 'readouts': summary})."""
     from automerge_tpu_torch.ops import linearize_kernel, list_rank
     from torch_linearize_cases import (edge_cases, forest_of_size,
-                                       resident_arena)
+                                       resident_arena, route_of, singletons,
+                                       tour_cases)
     dev = torch.device('cuda')
     rs = np.random.RandomState(16)
     cases = edge_cases(rs) + [
@@ -1094,19 +1157,35 @@ def linearize_cases(torch, np, card):
         ('resident arena of the 262,144-character text',
          resident_arena(rs, 262144, 393216), 20)]
     timed_labels = (cases[0][0], cases[1][0], cases[-2][0], cases[-1][0])
-    err, timings = 0, {}
-    for label, case, n_iters in cases:
+    tours = tour_cases(rs) + [('%s x8' % l, c, n, r) for l, c, n, r in
+                              tour_cases(rs, scale=8)] + [
+        ('one-element objects past the shared top', singletons(120000), 0,
+         None)]
+    err, timings, readouts = 0, {}, []
+    for label, case, n_iters, want_route in [
+            (l, c, n, None) for l, c, n in cases] + tours:
+        route = ('tour', 'rounds')[route_of(case[0], case[1], case[4],
+                                            n_iters)[0] == 0]
+        if want_route is not None and \
+                route != ('rounds', 'tour')[want_route]:
+            raise AssertionError('linearize %s: the model takes the %s '
+                                 'route' % (label, route))
         c = [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
         for si in (c[5], None):
             timed = label in timed_labels and \
                 (si is None) == label.startswith('resident')
-            e, t = check_linearize(torch, card, 'edge: ' + label, c[:5] + [
-                n_iters], {'sort_idx': si}, timed=timed)
+            e, t, ro = check_linearize(
+                torch, card, 'edge: ' + label, c[:5] + [n_iters],
+                {'sort_idx': si}, timed=timed, route=route)
             err = max(err, e)
+            readouts.append(ro)
             if t is not None:
                 timings[label] = t
-    log('linearize: %d edge cases bit-equal to the plain version with the '
-        'host\'s and the card\'s sort on %s' % (len(cases), card))
+    timings['readouts'] = readout_summary(readouts)
+    log('linearize: %d edge and tour cases bit-equal to the plain version '
+        'with the host\'s and the card\'s sort, each on the model\'s '
+        'route: %s on %s' % (len(cases) + len(tours), timings['readouts'],
+                             card))
     case = forest_of_size(np.random.RandomState(17), 100000, 500)
     c = [torch.from_numpy(np.asarray(x)).to(dev) for x in case]
     want = list_rank.linearize(*c[:5], 18, sort_idx=c[5])
@@ -4653,11 +4732,13 @@ def run(torch):
             largest[path] = i
     seen = {}
     best = None
+    readouts = {}
     for i, (path, args, kw) in enumerate(captured['linearize']):
         timed = largest[path] == i
-        e, timing = check_linearize(torch, card, 'main path %s' % path, args,
-                                    kw, timed=timed)
+        e, timing, ro = check_linearize(torch, card, 'main path %s' % path,
+                                        args, kw, timed=timed, route='tour')
         err_l = max(err_l, e)
+        readouts.setdefault(path, []).append(ro)
         if not timed:
             continue
         seen[path] = timing
@@ -4665,8 +4746,10 @@ def run(torch):
             best = (args[0].shape[0], path, timing)
     if best is None:
         raise AssertionError('linearize: no main-path call was captured')
+    readouts = {path: readout_summary(r) for path, r in readouts.items()}
     log('linearize: %d main-path calls of %d paths bit-equal to the plain '
-        'version on %s' % (len(captured['linearize']), len(seen), card))
+        'version, every one on the list-ranking route; per path: %s on %s'
+        % (len(captured['linearize']), len(seen), readouts, card))
     rows['linearize'] = (0, dict({
         'name': 'linearize', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/linearize.cu',
@@ -4674,6 +4757,7 @@ def run(torch):
                     'kernel)',
         'launches': launches[KL], 'launches_by_path': by_path[KL],
         'calls_checked': len(captured['linearize']),
+        'readouts': readouts,
         'timed_path': best[1], 'library_ms': None, 'paths': seen,
         'edges': lin_edges, 'max_abs_err': err_l}, **best[2]))
     # the lexsort kernel at every call of the driven paths, both entry
