@@ -72,9 +72,9 @@ KERNELS = {
         'amtpu_torch_linearize_scratch': (ctypes.c_int64, [ctypes.c_int64]),
     },
     'lexsort': {
-        'amtpu_torch_sibling_sort': (ctypes.c_int, [ctypes.c_void_p] * 7 + [
+        'amtpu_torch_sibling_sort': (ctypes.c_int, [ctypes.c_void_p] * 8 + [
             ctypes.c_int64, ctypes.c_void_p]),
-        'amtpu_torch_register_sort': (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+        'amtpu_torch_register_sort': (ctypes.c_int, [ctypes.c_void_p] * 5 + [
             ctypes.c_int64] * 3 + [ctypes.c_void_p]),
         'amtpu_torch_lexsort_scratch': (ctypes.c_int64, [ctypes.c_int64]),
     },

@@ -127,10 +127,15 @@ step and the resident routes), then:
      call of both entry points on every driven path (the largest call of
      each path timed as the wrapper and as a CUDA graph beside torch's
      stable sorts, `library_ms`), at the edges of its design
-     (`tests/torch_lexsort_cases.py`), one call of each entry point on
-     each route counted as one kernel by the profiler (right after phase
-     10), and on four
-     streams at once beside the linearize kernel's cooperative grid; a
+     (`tests/torch_lexsort_cases.py`, with the cluster's capacity and
+     one row above it, and group ids at n_groups, -2 and their in-range
+     twins), one call of each entry point on each route counted as one
+     kernel and no copy by the profiler (right after phase 10), and on
+     four streams at once beside the linearize kernel's cooperative grid
+     (both on their grids); every main-path call's route readout is
+     logged per path: each register order of the step on a per-doc route
+     (a warp or a block a doc, or one doc on the cluster), each sibling
+     sort up to the cluster's capacity on the cluster route; a
      resident dispatch must launch fewer than 69 kernels (the count with
      torch's sorts).  The sp-block kernel is held to the plain
      block mode at every call of phase 16 and at the route's seeded
@@ -1240,14 +1245,18 @@ def lexsort_entry(site):
 def check_lexsort(torch, card, label, site, args, timed=True):
     """Bit-equality of the lexsort kernel (`csrc/lexsort.cu`) at one entry
     point (`site`: 'sibling' or 'register') with its plain version on the
-    card, the whole permutation (invalid and padding rows included), and
-    (`timed`) the wrapper back to back (`ms`), the same calls as a CUDA
-    graph (`graph_ms`; a launch that does not capture fails), torch's
-    stable sorts of the same function (`library_ms`: the plain version,
-    the four or two sorts the kernel replaces; `plain_ms` is that call)
-    and the bound.  Returns (max abs error, timing dict or None)."""
+    card, the whole permutation (invalid and padding rows included), its
+    route readout (`lexsort_kernel.readout`), and (`timed`) the wrapper
+    back to back (`ms`), the same calls as a CUDA graph (`graph_ms`; a
+    launch that does not capture fails), torch's stable sorts of the same
+    function (`library_ms`: the plain version, the four or two sorts the
+    kernel replaces; `plain_ms` is that call) and the bound.  Returns
+    (max abs error, timing dict or None, readout)."""
+    from automerge_tpu_torch.ops import lexsort_kernel
     kernel, plain = lexsort_entry(site)
-    got = kernel(*args)
+    info = torch.zeros((lexsort_kernel.INFO_WORDS,), dtype=torch.int32,
+                       device=args[0].device)
+    got = kernel(*args, info=info)
     want = plain(*args)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError('lexsort %s %s: %s %s, plain %s %s' % (
@@ -1258,22 +1267,52 @@ def check_lexsort(torch, card, label, site, args, timed=True):
         raise AssertionError('lexsort %s %s: %d mismatches' % (site, label,
                                                                bad))
     err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
-    if not timed:
-        return err, None
     L = args[0].numel()
+    ro = dict(lexsort_kernel.readout(info), L=L)
+    if site == 'register':
+        ro['D'] = int(args[0].shape[0])
+    if not timed:
+        return err, None, ro
     ms = device_ms(torch, lambda: kernel(*args))
     g_ms = device_ms(torch, lambda: kernel(*args), graph=True)
     lib_ms = device_ms(torch, lambda: plain(*args))
     bound, by = lexsort_bound(site, L)
     shape = 'L=%d' % L if site == 'sibling' else 'D=%d T=%d' % tuple(
         args[0].shape)
-    log('lexsort %s %s %s: mismatches 0, wrapper %.4f ms, as a CUDA graph '
+    log('lexsort %s %s %s: mismatches 0, %s route (%d CTAs, %d rows a CTA, '
+        '%d of %d passes, %d barriers), wrapper %.4f ms, as a CUDA graph '
         '%.4f ms, torch\'s sorts (library, plain) %.4f ms, bound %.3g ms '
-        '(%s), x bound %.0f on %s' % (site, label, shape, ms, g_ms, lib_ms,
-                                      bound, by, ms / bound, card))
+        '(%s), x bound %.0f on %s' % (
+            site, label, shape, ro['route'], ro['ctas'], ro['rows'],
+            ro['run'], ro['passes'], ro['barriers'], ms, g_ms, lib_ms,
+            bound, by, ms / bound, card))
     return err, {'entry': site, 'shape': shape, 'ms': ms, 'graph_ms': g_ms,
                  'plain_ms': lib_ms, 'library_ms': lib_ms, 'bound_ms': bound,
-                 'bound_by': by, 'x_bound': ms / bound}
+                 'bound_by': by, 'x_bound': ms / bound,
+                 'route': ro['route'], 'barriers': ro['barriers']}, ro
+
+
+def lexsort_per_doc(ro):
+    """Whether a register-order readout shows a per-doc sort: a warp or a
+    block a doc, or one doc in range on the radix (its key holds no doc
+    bits: the cluster or grid sorts the doc alone)."""
+    return ro['route'] in ('warp', 'block') or (
+        ro['in_range'] and ro.get('D') == 1) or ro['L'] == 0
+
+
+def lexsort_routes(readouts):
+    """What the readouts of many lexsort calls show: calls per route, the
+    sizes each route took, the cluster sizes, barriers and passes run."""
+    out = {}
+    for ro in readouts:
+        r = out.setdefault(ro['route'], {'calls': 0, 'L': set(),
+                                         'ctas': set(), 'barriers': set(),
+                                         'run': set()})
+        r['calls'] += 1
+        for k in ('L', 'ctas', 'barriers', 'run'):
+            r[k].add(ro[k])
+    return {k: {f: sorted(v) if isinstance(v, set) else v
+                for f, v in r.items()} for k, r in out.items()}
 
 
 def cases_on_card(torch, np):
@@ -1287,8 +1326,8 @@ def lexsort_launch_counts(torch, np, card):
     """(kernels, copies and fills) that one call of each lexsort entry
     point puts on the card on each route, from the profiler (right after
     phase 10: by phase 11 the profiler sees no CUDA activity); fails
-    unless a measured call is one kernel."""
-    from torch_lexsort_cases import ONE_CTA_MAX, sized_forest
+    unless a measured call is one kernel and no copy."""
+    from torch_lexsort_cases import sized_forest
     on_card = cases_on_card(torch, np)
     rs = np.random.RandomState(20)
 
@@ -1297,20 +1336,22 @@ def lexsort_launch_counts(torch, np, card):
                         rs.randint(0, 99, (D, T)).astype(np.int32), 9))
     per_call = {}
     for name, site, args in (
-            ('sibling L=%d (route a)' % ONE_CTA_MAX, 'sibling',
-             on_card(sized_forest(rs, ONE_CTA_MAX))),
-            ('sibling L=65536 (route b)', 'sibling',
-             on_card(sized_forest(rs, 65536))),
-            ('register D=1 T=%d (route a)' % ONE_CTA_MAX, 'register',
-             register(1, ONE_CTA_MAX)),
-            ('register D=2048 T=32 (route b)', 'register',
-             register(2048, 32))):
+            ('sibling L=16384 (cluster)', 'sibling',
+             on_card(sized_forest(rs, 16384))),
+            ('sibling L=262144 (grid)', 'sibling',
+             on_card(sized_forest(rs, 262144))),
+            ('register D=2048 T=32 (a warp a doc)', 'register',
+             register(2048, 32)),
+            ('register D=2 T=64 (a block\'s docs)', 'register',
+             register(2, 64)),
+            ('register D=1 T=16384 (one doc, cluster)', 'register',
+             register(1, 16384))):
         kernel = lexsort_entry(site)[0]
         got = count_launches(torch, lambda: kernel(*args))
         per_call[name] = got
-        if got is not None and got[0] != 1:
-            raise AssertionError('lexsort %s: %d kernels a call, not one'
-                                 % (name, got[0]))
+        if got is not None and tuple(got) != (1, 0):
+            raise AssertionError('lexsort %s: (kernels, copies) a call %s, '
+                                 'not (1, 0)' % (name, got))
     log('lexsort: (kernels, copies and fills) of one call: %s on %s'
         % (per_call, card))
     return per_call
@@ -1319,33 +1360,63 @@ def lexsort_launch_counts(torch, np, card):
 def lexsort_cases(torch, np, card):
     """The lexsort kernel at the edges of its design
     (`tests/torch_lexsort_cases.py`: both entry points; L = 0 and 1, a warp
-    and a tile +-1, route (a)'s limit and one above, a text typed at its
-    head (one sibling group of every row), a hot register key of 700
-    rows, all-padding docs, garbage in invalid rows, padding equal on
-    every key, counters, actors and times at INT_MIN, objects at 2**30,
-    any int32 everywhere), each bit-equal to its plain version; then
-    route (b) on four streams from four threads at once, each alternating
-    a sibling sort and a linearize that sorts on the card (both
+    and a tile +-1, one CTA's tile and one above, the cluster's capacity
+    and one row above it, a text typed at its head (one sibling group of
+    every row), a hot register key of 700 rows, all-padding docs, docs of
+    a warp and of one row more, group ids at n_groups and -2 beside their
+    in-range twins, an id keyed into another doc's rows, garbage in
+    invalid rows, padding equal on every key, counters, actors and times
+    at INT_MIN, objects at 2**30, any int32 everywhere), each bit-equal
+    to its plain version and its route readout equal to the numpy
+    model's (`lexsort_model` at the card's largest cluster); then the
+    grid on four streams from four threads at once, each alternating a
+    sibling sort and a linearize that sorts on the card (both
     cooperative, serialized across the streams), 20 launches each, every
-    result bit-equal.  Returns (largest error, {'edges'})."""
+    result bit-equal.  Returns (largest error, {'edges', 'edge_routes'})."""
     from automerge_tpu_torch.ops import lexsort_kernel, linearize_kernel
     from automerge_tpu_torch.ops import list_rank
-    from torch_lexsort_cases import (register_cases, sibling_cases,
+    from torch_lexsort_cases import (capacity_cases, lexsort_model,
+                                     register_cases, sibling_cases,
                                      sized_forest)
     on_card = cases_on_card(torch, np)
-    err, n = 0, 0
+    err, n, routes = 0, 0, {}
+    cmax = None
+    # the grid: one block an SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for site, cases in (('sibling', sibling_cases(np.random.RandomState(
             18))), ('register', register_cases(np.random.RandomState(19)))):
         for label, case in cases:
-            e, _ = check_lexsort(torch, card, 'edge: ' + label, site,
-                                 on_card(case), timed=False)
+            e, _, ro = check_lexsort(torch, card, 'edge: ' + label, site,
+                                     on_card(case), timed=False)
             err = max(err, e)
             n += 1
+            if not ro['L']:
+                continue
+            cmax = ro['cluster_max']
+            mi = lexsort_model(site, case, cmax, sms)[1]
+            bad = {k: (ro[k], mi[k]) for k in (
+                'route', 'ctas', 'rows', 'passes', 'run', 'skipped',
+                'barriers', 'in_range') if ro[k] != mi[k]}
+            if bad:
+                raise AssertionError('lexsort %s %s: readout (card, model) '
+                                     '%s' % (site, label, bad))
+            routes[ro['route']] = routes.get(ro['route'], 0) + 1
+    for label, case in capacity_cases(np.random.RandomState(20), cmax):
+        e, _, ro = check_lexsort(torch, card, 'edge: ' + label, 'sibling',
+                                 on_card(case), timed=False)
+        err = max(err, e)
+        n += 1
+        if ro['route'] != lexsort_model('sibling', case, cmax,
+                                        sms)[1]['route']:
+            raise AssertionError('lexsort %s: took the %s route' % (
+                label, ro['route']))
+        routes[ro['route']] = routes.get(ro['route'], 0) + 1
     log('lexsort: %d edge cases of both entry points bit-equal to the plain '
-        'versions on %s' % (n, card))
-    c = on_card(sized_forest(np.random.RandomState(21), 100000))
+        'versions, each readout the model\'s (largest cluster %d; calls per '
+        'route %s) on %s' % (n, cmax, routes, card))
+    c = on_card(sized_forest(np.random.RandomState(21), 200000))
     want_sort = list_rank.sibling_sort(*c)
-    want_rank = list_rank.linearize(*c, 18)
+    want_rank = list_rank.linearize(*c, 19)
     torch.cuda.synchronize()
     bad = []
 
@@ -1353,7 +1424,7 @@ def lexsort_cases(torch, np, card):
         s = torch.cuda.Stream()
         with torch.cuda.stream(s):
             outs = [lexsort_kernel.sibling_sort_cuda(*c) if i % 2 else
-                    linearize_kernel.linearize_cuda(*c, 18)
+                    linearize_kernel.linearize_cuda(*c, 19)
                     for i in range(20)]
             s.synchronize()
         bad.extend(k for i, o in enumerate(outs) if not bool(
@@ -1369,9 +1440,10 @@ def lexsort_cases(torch, np, card):
                              'mismatching streams %s' % (
                                  [th.is_alive() for th in threads], bad))
     log('lexsort: 40 sibling sorts and 40 linearize calls sorting on the '
-        'card (L=100,000, cooperative) from four threads on four streams, '
-        'bit-equal, in %.3f s on %s' % (time.perf_counter() - t, card))
-    return err, {'edges': n}
+        'card (L=200,000: both on their cooperative grids) from four '
+        'threads on four streams, bit-equal, in %.3f s on %s'
+        % (time.perf_counter() - t, card))
+    return err, {'edges': n, 'edge_routes': routes}
 
 
 def member_cases(torch, np, card):
@@ -4481,7 +4553,10 @@ def run(torch):
     err_s, err_i = step_cases(torch, np, card)
     err_b = block_cases(torch, np, card)
     err_l, lin_edges = linearize_cases(torch, np, card)
+    t_sort = time.perf_counter()
     err_x, sort_edges = lexsort_cases(torch, np, card)
+    log('lexsort edge cases and four-stream lane: %.1f s'
+        % (time.perf_counter() - t_sort))
     log('schedule, route, block, linearize and lexsort seeded and edge '
         'cases: %.1f s' % (time.perf_counter() - t_cases))
 
@@ -4761,9 +4836,11 @@ def run(torch):
         'timed_path': best[1], 'library_ms': None, 'paths': seen,
         'edges': lin_edges, 'max_abs_err': err_l}, **best[2]))
     # the lexsort kernel at every call of the driven paths, both entry
-    # points, each held bit-equal; the largest call of each path timed;
-    # the row's times are the largest timed sibling sort's
+    # points, each held bit-equal with its route readout; the largest call
+    # of each path timed; the row's times are the largest timed sibling
+    # sort's
     entries = {}
+    t_sort = time.perf_counter()
     for key, site in (('sibling_sort', 'sibling'),
                       ('register_sort', 'register')):
         calls = captured[key]
@@ -4774,10 +4851,23 @@ def run(torch):
                 largest[path] = i
         seen = {}
         best = None
+        readouts = {}
         for i, (path, args, _kw) in enumerate(calls):
-            e, timing = check_lexsort(torch, card, 'main path %s' % path,
-                                      site, args, timed=largest[path] == i)
+            e, timing, ro = check_lexsort(torch, card, 'main path %s' % path,
+                                          site, args,
+                                          timed=largest[path] == i)
             err_x = max(err_x, e)
+            readouts.setdefault(path, []).append(ro)
+            if site == 'register' and not lexsort_per_doc(ro):
+                raise AssertionError('lexsort register main path %s (D=%d, '
+                                     'L=%d): not per doc (%s)' % (
+                                         path, ro['D'], ro['L'], ro))
+            if site == 'sibling' and ro['L'] and ro['route'] != (
+                    'cluster' if ro['L'] <= ro['cluster_max']
+                    * lexsort_kernel.TILE_MAX else 'grid'):
+                raise AssertionError('lexsort sibling main path %s (L=%d): '
+                                     'the %s route' % (path, ro['L'],
+                                                       ro['route']))
             if timing is None:
                 continue
             seen[path] = timing
@@ -4786,10 +4876,14 @@ def run(torch):
         if best is None:
             raise AssertionError('lexsort %s: no main-path call was '
                                  'captured' % site)
+        routes = {path: lexsort_routes(r) for path, r in readouts.items()}
         log('lexsort %s: %d main-path calls of %d paths bit-equal to the '
-            'plain version on %s' % (site, len(calls), len(seen), card))
+            'plain version; routes per path: %s on %s'
+            % (site, len(calls), len(seen), routes, card))
         entries[site] = dict(best[2], timed_path=best[1], paths=seen,
-                             calls_checked=len(calls))
+                             calls_checked=len(calls), routes=routes)
+    log('lexsort main-path checks and timing: %.1f s'
+        % (time.perf_counter() - t_sort))
     rows['lexsort'] = (0, dict({
         'name': 'lexsort', 'route': 'cuda',
         'source': 'automerge_tpu_torch/csrc/lexsort.cu',

@@ -9,11 +9,19 @@ the tolerance is equality):
 - the plain register order (`parallel/mesh.py::register_order`) and
   `register_sort_auto` against the JAX step's per-doc
   `jnp.lexsort((time, group))` offset by d * T;
-- `lexsort_model`, the kernel's algorithm in numpy (its plan, passes,
-  skipped passes, block and warp segments), against both, on route (b)'s
-  H100 grid and on a small grid that splits the cases into several
-  blocks;
-- the wrappers' checks, and that the card paths reach the kernel.
+- `lexsort_model`, the kernel's algorithm in numpy (the route by L, the
+  plan, the register order's per-doc routes where every group id is in
+  range, the radix passes with each CTA's or tile's local ranks, the
+  cluster's exchange and the grid's one sweep and look-back, skipped
+  passes, the carried key window), against both, on an H100 (clusters
+  of 16, a grid of 132), with clusters of 8 and a small grid, and with
+  every L on a small grid; the model's grid at 9-bit digits; the warp
+  route's narrow and wide keys;
+- the route seams: the cluster's capacity and one row above it, a group
+  id at n_groups or -2 against its in-range twin, an id keyed into
+  another doc's rows (why the in-range decision is global);
+- the wrappers' checks and readout, and that the card paths reach the
+  kernel.
 
 The kernel itself runs in `chip_smoke.py` on the card."""
 
@@ -35,10 +43,11 @@ from automerge_tpu_torch.ops.lexsort_kernel import (register_sort_auto,
                                                     sibling_sort_auto,
                                                     sibling_sort_cuda)
 from automerge_tpu_torch.parallel import mesh
-from torch_lexsort_cases import (ONE_CTA_MAX, groups_in_range,
-                                 lexsort_model, register_cases,
-                                 register_reference, sibling_cases,
-                                 sibling_reference)
+from torch_lexsort_cases import (CLUSTER_ROWS, NARROW_BITS, TILE_MAX,
+                                 capacity_cases,
+                                 groups_in_range, lexsort_model,
+                                 register_cases, register_reference,
+                                 route_of, sibling_cases, sibling_reference)
 from torch_threads import cap_threads
 
 cap_threads()
@@ -46,6 +55,10 @@ cap_threads()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIBLING = sibling_cases(np.random.RandomState(18))
 REGISTER = register_cases(np.random.RandomState(19))
+#: (largest cluster, grid blocks) of the model's cards, by test id: an
+#: H100, clusters of 8 on a small grid, every L on a small grid
+SIBLING_CARDS = {'132': (16, 132), '5': (8, 5), 'grid-3': (0, 3)}
+REGISTER_CARDS = {'132': (16, 132), '3': (0, 3), 'c8-5': (8, 5)}
 
 
 def t(x):
@@ -84,14 +97,15 @@ def test_sibling_sort_matches_jax(label, case):
     assert (auto.numpy() == want).all()
 
 
-@pytest.mark.parametrize('grid', [132, 5])
+@pytest.mark.parametrize('card', list(SIBLING_CARDS.values()),
+                         ids=list(SIBLING_CARDS))
 @pytest.mark.parametrize('label,case', SIBLING, ids=[c[0] for c in SIBLING])
-def test_sibling_model_matches_jax(label, case, grid):
-    got, info = lexsort_model('sibling', case, grid_blocks=grid)
+def test_sibling_model_matches_jax(label, case, card):
+    got, info = lexsort_model('sibling', case, *card)
     assert (got == jax_sibling(*case)).all()
     L = case[0].shape[0]
-    assert info['route'] == ('a' if L <= ONE_CTA_MAX else 'b')
-    assert info['passes'] <= 16
+    assert info['route'] == route_of(L, *card)[0]
+    assert info['passes'] <= 16 and info['run'] <= info['passes']
 
 
 @pytest.mark.parametrize('label,case', REGISTER,
@@ -109,17 +123,44 @@ def test_register_order_matches_jax(label, case):
         assert (plain.numpy() == want).all()
 
 
-@pytest.mark.parametrize('grid', [132, 3])
+@pytest.mark.parametrize('card', list(REGISTER_CARDS.values()),
+                         ids=list(REGISTER_CARDS))
 @pytest.mark.parametrize('label,case', REGISTER,
                          ids=[c[0] for c in REGISTER])
-def test_register_model_matches_plain_and_jax(label, case, grid):
+def test_register_model_matches_plain_and_jax(label, case, card):
     rg, rt, n_groups = case
-    got, info = lexsort_model('register', case, grid_blocks=grid)
+    got, info = lexsort_model('register', case, *card)
     plain = mesh.register_order(t(rg), t(rt), n_groups).numpy()
     assert (got == plain).all()
     if groups_in_range(rg, n_groups):
         assert (got == jax_register(rg, rt)).all()
     assert info['passes'] <= 12
+    D, T = rg.shape
+    if info['in_range'] != int(groups_in_range(rg, n_groups) and D * T > 0):
+        raise AssertionError(info)
+    # the per-doc routes exactly where every id is in range
+    if info['route'] in ('warp', 'block'):
+        assert groups_in_range(rg, n_groups)
+    elif groups_in_range(rg, n_groups) and D * T:
+        assert T > 32 and T > info['rows'] or info['bits'] > 64
+
+
+@pytest.mark.parametrize('label,case', SIBLING[3:] + REGISTER[2:],
+                         ids=[c[0] for c in SIBLING[3:] + REGISTER[2:]])
+def test_grid_model_at_nine_bit_digits(label, case):
+    """The model's grid at 9-bit digits (the kernel's are 8 bits,
+    `kDigitBits`: a 9-bit grid measured slower on an H100): the passes
+    follow the width; every L on a grid of 4 blocks."""
+    site = 'sibling' if len(case) == 5 else 'register'
+    got, info = lexsort_model(site, case, 0, 4, grid_bits=9)
+    assert info['route'] in ('grid', 'warp', 'block')
+    if info['route'] == 'grid':
+        assert info['digit_bits'] == 9
+        assert info['passes'] == -(-info['bits'] // 9)
+    want = jax_sibling(*case) if site == 'sibling' else \
+        mesh.register_order(*[t(x) if isinstance(x, np.ndarray) else x
+                              for x in case]).numpy()
+    assert (got == want).all()
 
 
 def test_model_pays_only_for_the_bits_that_vary():
@@ -142,16 +183,129 @@ def test_model_pays_only_for_the_bits_that_vary():
 
 
 def test_model_splits_route_b_into_blocks_and_warps():
-    """Route (b) on the H100 grid at 20,000 rows: 20 blocks of 1,024
-    positions; on a grid of 5, blocks of 4,096 and warps of 128."""
+    """20,000 rows over CTAs: on an H100 a cluster of 16 CTAs of 1,250
+    rows (pow2ceil(20,000 / 1,024) capped at 16), with clusters of 8 CTAs
+    of 2,500; every L on a grid of 5, 5 tiles of 4,000, and of 132, 132
+    tiles of 152; each pass pays two cluster barriers or one grid
+    barrier; before its passes the cluster pays two (its peers started,
+    the ranges) and the grid two (the ranges, the totals)."""
     case = dict(SIBLING)['typed at its head, 20,000 rows (route b)']
-    assert lexsort_model('sibling', case)[1]['blocks'] == 20
-    assert lexsort_model('sibling', case, grid_blocks=5)[1]['blocks'] == 5
+    for card, route, ctas, rows, tiles in (
+            ((16, 132), 'cluster', 16, 1250, 0),
+            ((8, 132), 'cluster', 8, 2500, 0),
+            ((0, 5), 'grid', 5, 4000, 5), ((0, 132), 'grid', 132, 152, 132)):
+        got, info = lexsort_model('sibling', case, *card)
+        assert (got == jax_sibling(*case)).all()
+        assert (info['route'], info['ctas'], info['rows'], info['tiles']) \
+            == (route, ctas, rows, tiles)
+        assert info['passes'] == 2 and info['skipped'] == []
+        assert info['barriers'] == (2 + 2 * 2 if route == 'cluster'
+                                    else 2 + 1)
+    assert route_of(CLUSTER_ROWS + 1) == ('cluster', 2, 513)
+    assert route_of(16 * TILE_MAX) == ('cluster', 16, TILE_MAX)
+    assert route_of(16 * TILE_MAX + 1) == ('grid', 132, 497)
+    assert route_of(16 * TILE_MAX + 1, 8) == ('grid', 132, 497)
+    assert route_of(8 * TILE_MAX, 8) == ('cluster', 8, TILE_MAX)
+
+
+@pytest.mark.parametrize('card', [(16, 132), (8, 132)])
+def test_model_at_the_cluster_capacity_and_one_above(card):
+    """The cluster's capacity (its CTAs of a full tile) takes the cluster;
+    one row more takes the grid; both bit-equal to jnp.lexsort."""
+    for label, case in capacity_cases(np.random.RandomState(20), card[0]):
+        L = case[0].shape[0]
+        got, info = lexsort_model('sibling', case, *card)
+        assert (got == jax_sibling(*case)).all(), label
+        assert info['route'] == ('cluster' if L <= card[0] * TILE_MAX
+                                 else 'grid'), label
+        assert info['rows'] == (TILE_MAX if info['route'] == 'cluster'
+                                else -(-L // card[1]))
+
+
+@pytest.mark.parametrize('value,route', [(9, 'cluster'), (8, 'warp'),
+                                         (-2, 'cluster'), (-1, 'warp')])
+def test_one_row_outside_the_groups_turns_the_per_doc_route_off(value,
+                                                                 route):
+    """A single row at n_groups or at -2 in 64 docs of 32 rows: the per-doc
+    route gives way to the radix; n_groups - 1 and -1 keep it; each
+    bit-equal to the plain version."""
+    label = {9: 'a row at n_groups', 8: 'a row at n_groups - 1',
+             -2: 'a row at -2', -1: 'a row at -1'}[value]
+    rg, rt, n = dict(REGISTER)[label + ', 64 docs x 32']
+    assert (rg == value).sum() >= 1 and n == 9
+    got, info = lexsort_model('register', (rg, rt, n))
+    assert info['route'] == route
+    assert info['in_range'] == int(route == 'warp')
+    assert (got == mesh.register_order(t(rg), t(rt), n).numpy()).all()
+
+
+def test_in_range_decision_is_global():
+    """Doc 0's id 34 = 5 (n_groups + 1) - 1 keys as doc 5's padding: doc 5
+    holds only in-range ids, yet its rows in the flattened order are not
+    its own per-doc sort (a decision each block made from its own docs
+    would be wrong); the kernel's route sees the whole input and takes
+    the radix."""
+    rg, rt, n = dict(REGISTER)["an id keyed into another doc's rows"]
+    T = rg.shape[1]
+    plain = mesh.register_order(t(rg), t(rt), n).numpy()
+    own = np.lexsort((rt[5], rg[5])) + 5 * T
+    assert groups_in_range(rg[5:6], n) and not groups_in_range(rg, n)
+    assert not (plain[5 * T:6 * T] == own).all()
+    assert 0 * T + 7 in plain[5 * T:6 * T]
+    got, info = lexsort_model('register', (rg, rt, n))
+    assert info['route'] == 'cluster' and (got == plain).all()
+
+
+def test_a_doc_of_a_warp_and_one_row_takes_the_block_route():
+    """T = 32: a warp a doc; T = 33: batches of whole docs a CTA."""
+    for label, route in (('docs of a warp, 300 x 32', 'warp'),
+                         ('docs of a warp and one row, 40 x 33', 'block')):
+        rg, rt, n = dict(REGISTER)[label]
+        got, info = lexsort_model('register', (rg, rt, n))
+        assert info['route'] == route, label
+        assert (got == jax_register(rg, rt)).all(), label
+
+
+@pytest.mark.parametrize('label,narrow', [
+    ('docs of a warp, 300 x 32', True),
+    ('scaling-like, 512 docs x 32', True),
+    ('docs of a warp, times at INT_MIN and INT_MAX, 64 x 32', False)])
+def test_warp_route_keys_narrow_and_wide(label, narrow):
+    """A warp a doc ranks 32-bit keys, the lane below (group, time), where
+    their widths fit NARROW_BITS, else 64-bit keys and lanes (times that
+    span every int32); both bit-equal to the JAX step's sort."""
+    rg, rt, n = dict(REGISTER)[label]
+    got, info = lexsort_model('register', (rg, rt, n))
+    assert info['route'] == 'warp' and info['narrow'] is narrow
+    assert info['barriers'] == 2  # its peers started; the ranges
+    assert (got == jax_register(rg, rt)).all()
 
 
 def _sibling_cols():
     case = dict(SIBLING)['forest L=33']
     return [t(x) for x in case]
+
+
+def test_readout_names_its_words():
+    info = torch.zeros(lexsort_kernel.INFO_WORDS, dtype=torch.int32)
+    info[:12] = torch.tensor([3, 16, 8, 15, 2, 2, 0b101, 1, 1, 128, 0, 16])
+    info[12:] = torch.arange(100, 110)
+    ro = lexsort_kernel.readout(info)
+    assert ro['route'] == 'block' and ro['ctas'] == 16
+    assert ro['skipped'] == [0, 2] and ro['in_range'] == 1
+    assert ro['plan_ns'] == 100 and ro['pass_ns'] == [101, 102]
+    assert ro['end_ns'] == 109
+
+
+@pytest.mark.parametrize('bad', [
+    lambda: torch.zeros(lexsort_kernel.INFO_WORDS, dtype=torch.int64),
+    lambda: torch.zeros(lexsort_kernel.INFO_WORDS - 1, dtype=torch.int32),
+    lambda: torch.zeros(2 * lexsort_kernel.INFO_WORDS,
+                        dtype=torch.int32)[::2],
+])
+def test_cuda_wrappers_reject_a_bad_readout(bad):
+    with pytest.raises(ValueError):
+        lexsort_kernel._check_info(bad(), torch.device('cpu'))
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -216,8 +370,26 @@ def test_kernel_is_built_from_its_source():
     for name in entry:
         assert 'extern "C" ' in src and name + '(' in src
     assert 'cudaLaunchCooperativeKernel' in src
-    limit = re.search(r'kOneCtaMax = (\d+);', src)
-    assert int(limit.group(1)) == lexsort_kernel.ONE_CTA_MAX == ONE_CTA_MAX
+    assert 'cudaLaunchKernelEx' in src and 'cudaLaunchAttributeClusterDimension' in src
+    assert 'map_shared_rank' in src
+    for const, value in (('kTileMax', None),
+                         ('kClusterRows', CLUSTER_ROWS),
+                         ('kDigitBits', 8), ('kNarrowBits', NARROW_BITS),
+                         ('kClusterMax', 16), ('kSteps', 8),
+                         ('kThreads', 512)):
+        m = re.search(r'constexpr int %s = ([^;]+);' % const, src)
+        assert m, const
+        if value is not None:
+            assert int(m.group(1)) == value, const
+    assert lexsort_kernel.TILE_MAX == TILE_MAX == 512 * 8
+    assert lexsort_kernel.CLUSTER_ROWS == CLUSTER_ROWS
+    words = re.search(r'enum Info \{([^}]*)\}', src).group(1)
+    names = [w.strip().split('=')[0].strip() for w in words.split(',')
+             if w.strip()]
+    assert names[-1] == 'kInfoWords'
+    assert len(lexsort_kernel.INFO_FIELDS) == names.index('kInfoPlanNs')
+    assert lexsort_kernel.INFO_WORDS == len(lexsort_kernel.INFO_FIELDS) \
+        + int(re.search(r'kStampPasses = (\d+);', src).group(1)) + 2
 
 
 def test_no_library_sort_in_the_kernels():

@@ -10,32 +10,53 @@ survive: one sibling group of every row (a text typed at its head), a
 hot register group, invalid rows holding any int32, padding equal on
 every key, counters and actors at INT_MIN (where -x wraps), valid
 objects at and above 2**30 (the invalid rows' first key), all-padding
-docs, and the sizes at the kernel's edges (0, 1, a warp and a tile
-+-1, route (a)'s limit and one above).
+docs, group ids just inside and just outside [-1, n_groups), and the
+sizes at the kernel's seams (0, 1, a warp and a tile +-1, a doc of a
+warp and one more row, one CTA's tile, the cluster's capacity and one
+row above it).  "route (a)" in a label marks the size class of at most
+4,096 rows, "route b" one of 16,384 to 20,480 (16 CTAs).
 
-`lexsort_model` walks the kernel's algorithm: the keys' ranges, the
-plan (the sentinel, each key's width and shift in the composite), the
-digit planes and the passes with their skips, per-warp histograms over
-the blocks' and warps' position segments, the offsets in the kernel's
-order (digit, block, warp, running count), so the CPU tests can hold
-the design to `jnp.lexsort` where no card is."""
+`lexsort_model` walks the kernel's algorithm: the route by L (one
+cluster of CTAs up to its capacity, the cooperative grid above), the
+keys' ranges and the plan (the sentinel, each key's width and shift in
+the composite, whether every group id is in range), the register
+order's per-doc routes (a warp a doc, batches of docs a CTA), and the
+radix passes: each CTA's or tile's rows ranked locally by per-warp
+histograms and staged, then placed by the digit's start and the counts
+of the CTAs (cluster) or tiles (grid, the decoupled look-back) before
+it; the grid's one sweep of every pass's counts and its skipped passes;
+the 64-bit key window each row carries and its re-keying.  It counts
+the barriers each route pays, so the CPU tests hold the design to
+`jnp.lexsort` and the plain versions where no card is, and the card's
+readout to the model."""
 
 import numpy as np
 
 from torch_linearize_cases import (chain, forest, forest_of_size,
                                    resident_arena, with_garbage_tail)
 
-#: route (a)'s largest row count (`kOneCtaMax`): one block
-ONE_CTA_MAX = 4096
-#: threads a block; a warp's rows a step
-THREADS = 1024
+#: threads a CTA; a warp's rows a step
+THREADS = 512
 WARPS = THREADS // 32
-DIGIT_BITS = 8
-RADIX = 1 << DIGIT_BITS
+#: a CTA's most rows (`kTileMax`: 8 steps of 32 rows a warp)
+TILE_MAX = 4096
+#: the cluster's rows a CTA it aims at (`kClusterRows`)
+CLUSTER_ROWS = 1024
+#: the digit of the cluster and of the grid (`kDigitBits`)
+CLUSTER_BITS = 8
+GRID_BITS = 8
+#: the warp route's narrow keys: (group, time) in at most this many bits,
+#: the lane below them (`kNarrowBits`)
+NARROW_BITS = 27
+#: the largest cluster an H100 schedules at a full tile (16 CTAs with
+#: the non-portable sizes; 8 portable)
+H100_CLUSTER = 16
 #: an invalid row's first sibling key
 SENTINEL = 2 ** 30
-#: route (b)'s grid on an H100: 132 SMs, one block of 1,024 threads each
+#: the grid on an H100: 132 SMs, one block of 1,024 threads each
 H100_GRID = 132
+#: the readout's route names (`lexsort_kernel.ROUTES`)
+ROUTES = ('cluster', 'grid', 'warp', 'block')
 I32 = np.iinfo(np.int32)
 
 
@@ -123,8 +144,8 @@ def sibling_cases(rs):
     out = [('L=0', _cols([], [], [], [], [])),
            ('L=1 valid', _cols([0], [-1], [1], [0], [True])),
            ('L=1 invalid', _cols([7], [3], [1], [0], [False]))]
-    for L in (31, 32, 33, 1023, 1024, 1025, ONE_CTA_MAX, ONE_CTA_MAX + 1,
-              8192, 16384):
+    for L in (31, 32, 33, 1023, 1024, 1025, TILE_MAX, TILE_MAX + 1, 8192,
+              8193, 16384):
         out.append(('forest L=%d' % L, sized_forest(rs, L)))
     out += [
         ('typed at its head, 5,000 rows', head_typed(5000, pad=96)),
@@ -154,11 +175,27 @@ def sibling_cases(rs):
     return out
 
 
+def capacity_cases(rs, cluster=H100_CLUSTER):
+    """The sibling sort at the cluster's capacity (`cluster` CTAs of a
+    full tile) and one row above it, the first size on the grid."""
+    cap = cluster * TILE_MAX
+    return [('forest at the cluster\'s capacity, L=%d' % cap,
+             sized_forest(rs, cap)),
+            ('forest one above the capacity, L=%d' % (cap + 1),
+             sized_forest(rs, cap + 1))]
+
+
 def register_cases(rs):
     """(label, (rg, rt, n_groups)) at the edges of the kernel's design:
     empty and one-row batches, a hot key of 700 rows, all-padding docs,
-    times at INT_MIN and INT_MAX, route (a)'s limit and one above, a
-    wide n_groups and group ids outside [-1, n_groups)."""
+    times at INT_MIN and INT_MAX, one doc of 4,096 rows, 17 docs of 241
+    rows (a CTA of 513 rows holds two), docs of a warp
+    and of one row more, docs of a warp whose times span every int32
+    (the warp route's wide keys), a wide n_groups, group ids outside [-1,
+    n_groups), one row at n_groups and one at -2 in an otherwise
+    segmented batch (the per-doc routes give way) and their in-range
+    twins at n_groups - 1 and -1, and an id that keys into another
+    doc's rows."""
     def batch(D, T, n_groups, p_pad=0.2, times=None):
         rg = rs.randint(0, max(n_groups, 1), (D, T))
         rg[rs.rand(D, T) < p_pad] = -1
@@ -173,6 +210,15 @@ def register_cases(rs):
     pick = np.array([I32.min, I32.min + 1, -1, 0, 1, I32.max], np.int64)
     wild = batch(3, 500, 7)
     wild = (_any_int32(rs, (3, 500)).astype(np.int32), wild[1], 7)
+
+    def one_row(D, T, n_groups, value):
+        rg, rt, n = batch(D, T, n_groups)
+        rg[D // 2, T // 3] = value
+        return rg, rt, n
+    # doc 0's id 5 (n_groups + 1) - 1 keys as doc 5's padding: doc 5 is in
+    # range, yet its rows are not its per-doc sort
+    into = batch(8, 48, 6)
+    into[0][0, 7] = 5 * 7 - 1
     return [
         ('D=0', (np.zeros((0, 8), np.int32), np.zeros((0, 8), np.int32), 1)),
         ('T=0', (np.zeros((3, 0), np.int32), np.zeros((3, 0), np.int32), 1)),
@@ -183,12 +229,22 @@ def register_cases(rs):
         ('times at INT_MIN and INT_MAX',
          batch(8, 200, 9, times=pick[rs.randint(0, 6, (8, 200))])),
         ('scaling-like, 512 docs x 32', batch(512, 32, 4)),
-        ('route (a) limit, 1 doc x %d' % ONE_CTA_MAX,
-         batch(1, ONE_CTA_MAX, 3000)),
+        ('route (a) limit, 1 doc x 4096', batch(1, 4096, 3000)),
         ('one above, 17 docs x 241', batch(17, 241, 40)),
         ('one doc x 16,384', batch(1, 16384, 5000)),
         ('wide n_groups', batch(40, 128, 2 ** 31 - 1)),
         ('group ids outside [-1, n_groups)', wild),
+        ('docs of a warp, 300 x 32', batch(300, 32, 5)),
+        ('docs of a warp and one row, 40 x 33', batch(40, 33, 5)),
+        ('a row at n_groups, 64 docs x 32', one_row(64, 32, 9, 9)),
+        ('a row at n_groups - 1, 64 docs x 32', one_row(64, 32, 9, 8)),
+        ('a row at -2, 64 docs x 32', one_row(64, 32, 9, -2)),
+        ('a row at -1, 64 docs x 32', one_row(64, 32, 9, -1)),
+        ('a row at n_groups, 24 docs x 80', one_row(24, 80, 9, 9)),
+        ('a row at -2, 24 docs x 80', one_row(24, 80, 9, -2)),
+        ("an id keyed into another doc's rows", into),
+        ('docs of a warp, times at INT_MIN and INT_MAX, 64 x 32',
+         batch(64, 32, 9, times=pick[rs.randint(0, 6, (64, 32))])),
     ]
 
 
@@ -211,7 +267,7 @@ def register_keys(rg, rt, n_groups):
 
 
 def plan(keys, sentinel_rows):
-    """(lo, widths, shifts, sentinel, passes) as the kernel's make_plan
+    """(lo, widths, shifts, sentinel, bits) as the kernel's make_plan
     computes them from the whole input's ranges."""
     lo = [int(k.min()) if k.size else 0 for k in keys]
     hi = [int(k.max()) if k.size else 0 for k in keys]
@@ -229,13 +285,12 @@ def plan(keys, sentinel_rows):
     for k in range(len(keys) - 1, -1, -1):
         shifts[k] = bits
         bits += widths[k]
-    return lo, widths, shifts, sentinel, -(-bits // DIGIT_BITS)
+    return lo, widths, shifts, sentinel, bits
 
 
-def digit_planes(keys, sentinel_rows, lo, widths, shifts, sentinel,
-                 passes):
-    """[passes, L] uint8: the composite's 8-bit digits, least significant
-    first, from two 64-bit words as the kernel builds them."""
+def composite(keys, sentinel_rows, lo, widths, shifts, sentinel):
+    """The rows' composite keys as two uint64 words (bits 0-63, 64-127),
+    built as the kernel builds them."""
     L = keys[0].shape[0]
     w_lo = np.zeros(L, np.uint64)
     w_hi = np.zeros(L, np.uint64)
@@ -251,74 +306,260 @@ def digit_planes(keys, sentinel_rows, lo, widths, shifts, sentinel,
                 w_hi |= u >> np.uint64(64 - at)
         else:
             w_hi |= u << np.uint64(at - 64)
-    out = np.empty((passes, L), np.uint8)
-    for q in range(passes):
-        o = q * DIGIT_BITS
-        word = w_lo >> np.uint64(o) if o < 64 else w_hi >> np.uint64(o - 64)
-        out[q] = (word & np.uint64(0xff)).astype(np.uint8)
-    return out
+    return w_lo, w_hi
 
 
-def radix_pass(digits, n_blocks, span, seg):
-    """One pass's destinations as the kernel computes them: position i
-    belongs to warp i // seg (block i // span); per warp a histogram of
-    digits; offsets digit base + block offset + warp offset + the running
-    count of the digit in the warp's walk (its 32-row steps ranked by
-    lane).  Returns dest [n] (asserted a bijection), or None when one
-    digit holds every row (the pass is skipped)."""
+def window(w_lo, w_hi, at):
+    """Bits [at, at + 64) of the composites."""
+    if at == 0:
+        return w_lo.copy()
+    if at < 64:
+        return (w_lo >> np.uint64(at)) | (w_hi << np.uint64(64 - at))
+    return w_hi >> np.uint64(at - 64)
+
+
+def window_for(o, carried, digit_bits):
+    """The window a pass at digit offset `o` reads: the carried one while
+    the digit lies inside it, else one starting at the digit (a re-key)."""
+    return o if o + digit_bits > carried + 64 else carried
+
+
+def cluster_size(L, cluster_max):
+    """The cluster route's CTAs for L rows: pow2ceil(L / CLUSTER_ROWS), at
+    most `cluster_max`."""
+    C = 1
+    while C < cluster_max and C * CLUSTER_ROWS < L:
+        C *= 2
+    return C
+
+
+def route_of(L, cluster_max=H100_CLUSTER, grid_blocks=H100_GRID):
+    """('cluster', C CTAs, rows a CTA) up to the cluster's capacity, else
+    ('grid', G blocks, rows a tile): the kernel's choice by L."""
+    if L <= cluster_max * TILE_MAX:
+        C = cluster_size(L, cluster_max)
+        return 'cluster', C, -(-L // C)
+    return 'grid', grid_blocks, min(TILE_MAX, -(-L // grid_blocks))
+
+
+def local_rank(digits, digit_bits):
+    """A CTA's stable rank of its n rows by digit, as the kernel computes
+    it: warp w walks positions [w seg, (w + 1) seg) 32 a step, counts
+    into its own histogram row; per digit the warps' exclusive offsets,
+    the digits' starts (`dbase`), then each row's running count among
+    its warp's equal digits.  Returns (local place [n], dbase [R],
+    counts [R]); asserts the places are the stable sort's."""
+    R = 1 << digit_bits
     n = digits.shape[0]
-    total = np.bincount(digits, minlength=RADIX)
-    if total.max() == n:
-        return None
+    counts = np.bincount(digits, minlength=R).astype(np.int64)
+    dbase = np.cumsum(counts) - counts
+    if n == 0:
+        return np.zeros(0, np.int64), dbase, counts
+    seg = -(-(-(-n // WARPS)) // 32) * 32
     owner = np.arange(n) // seg
-    hist = np.zeros((n_blocks * WARPS, RADIX), np.int64)
+    hist = np.zeros((WARPS, R), np.int64)
     np.add.at(hist, (owner, digits), 1)
-    per_block = hist.reshape(n_blocks, WARPS, RADIX)
-    warp_off = np.cumsum(per_block, axis=1) - per_block
-    block_tot = per_block.sum(axis=1)
-    block_off = np.cumsum(block_tot, axis=0) - block_tot
-    digit_base = np.cumsum(total) - total
-    key = owner * RADIX + digits
+    warp_off = np.cumsum(hist, axis=0) - hist
+    key = owner * R + digits
     order = np.argsort(key, kind='stable')
     ks = key[order]
     start = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
     first = np.repeat(start, np.diff(np.r_[start, n]))
     running = np.empty(n, np.int64)
     running[order] = np.arange(n) - first
-    b = owner // WARPS
-    dest = digit_base[digits] + block_off[b, digits] \
-        + warp_off.reshape(-1, RADIX)[owner, digits] + running
-    assert (np.sort(dest) == np.arange(n)).all(), 'offsets are no bijection'
-    assert span % seg == 0 and span == WARPS * seg
-    return dest
+    place = dbase[digits] + warp_off[owner, digits] + running
+    assert (place[np.argsort(digits, kind='stable')] == np.arange(n)).all()
+    return place, dbase, counts
 
 
-def lexsort_model(site, case, grid_blocks=H100_GRID):
+def _stage(digits, digit_bits):
+    """The staged order of a tile (staged position -> loaded position),
+    the digits' starts and counts."""
+    place, dbase, counts = local_rank(digits, digit_bits)
+    order = np.empty_like(place)
+    order[place] = np.arange(place.shape[0])
+    return order, dbase, counts
+
+
+def _radix(cols_of, L, bits, rows, digit_bits, grid, first, info):
+    """The radix passes over L rows split into contiguous parts of `rows`
+    (the cluster's CTAs or the grid's tiles): cols_of(idx, at)
+    gives the rows' key windows from the columns.  Each pass ranks each
+    part locally and places its staged rows at the digit's start plus the
+    counts of the parts before it (cluster: read from the peers; grid:
+    the look-back) plus the place among its equal digits.  The grid takes
+    its skipped passes from one sweep of every pass's totals; the
+    cluster learns a skip after its first barrier of the pass.  Barriers:
+    `first` before the plan, then the cluster's two a pass (one for a
+    skipped pass); the grid's one for the totals and one a run pass but
+    the last.  Returns the permutation and fills info's passes, run,
+    skipped, barriers."""
+    R = 1 << digit_bits
+    passes = -(-bits // digit_bits)
+    idx = np.arange(L, dtype=np.int64)
+    carried = 0
+    key = cols_of(idx, 0)
+    totals = None
+    if grid:
+        full = [cols_of(idx, q * digit_bits) for q in range(passes)]
+        totals = [np.bincount((f & np.uint64(R - 1)).astype(np.int64),
+                              minlength=R) for f in full]
+    skipped, run, barriers = [], 0, first + (1 if grid else 0)
+    for q in range(passes):
+        o = q * digit_bits
+        if grid and totals[q].max() == L:
+            skipped.append(q)
+            continue
+        at = window_for(o, carried, digit_bits)
+        if at != carried:
+            key = cols_of(idx, at)
+            carried = at
+        digits = ((key >> np.uint64(o - at)) & np.uint64(R - 1)) \
+            .astype(np.int64)
+        total = np.bincount(digits, minlength=R)
+        start = np.cumsum(total) - total
+        before = np.zeros(R, np.int64)
+        dest = np.empty(L, np.int64)
+        for c in range(-(-L // rows)):
+            lo, hi = c * rows, min(L, (c + 1) * rows)
+            order, dbase, counts = _stage(digits[lo:hi], digit_bits)
+            staged = digits[lo:hi][order]
+            pos = np.arange(hi - lo)
+            dest[lo + order] = start[staged] + before[staged] + pos \
+                - dbase[staged]
+            before += counts
+        assert (np.sort(dest) == np.arange(L)).all(), 'no bijection'
+        if not grid and total.max() == L:
+            skipped.append(q)
+            barriers += 1
+            assert (dest == np.arange(L)).all()
+            continue
+        nxt = np.empty(L, np.int64)
+        nxt[dest] = idx
+        idx = nxt
+        key_next = np.empty_like(key)
+        key_next[dest] = key
+        key = key_next
+        run += 1
+        barriers += 1 if grid else 2
+    if grid:
+        barriers -= 1 if run else 0
+    info.update(passes=passes, run=run, skipped=skipped, barriers=barriers)
+    return idx
+
+
+def _warp_docs(rg, rt, lo, widths, g_lo, g_width):
+    """A warp a doc: each row's rank is the count of its doc's rows
+    before it by (group, time, row).  A row's key is (group - least, time
+    - least) in the plan's widths; where those fit NARROW_BITS the lane
+    goes below them and the rank counts the smaller 32-bit keys, else it
+    counts the smaller keys and the equal keys of earlier lanes.  Returns
+    (the permutation, whether the keys were narrow)."""
+    D, T = rg.shape
+    wt = widths[1]
+    k = ((rg.astype(np.int64) - g_lo).astype(np.uint64) << np.uint64(wt)) \
+        | (rt.astype(np.int64) - lo[1]).astype(np.uint64)
+    lanes = np.arange(T)
+    narrow = g_width + wt <= NARROW_BITS
+    if narrow:
+        k = (k << np.uint64(5)) | lanes.astype(np.uint64)
+        assert (k < np.uint64(2 ** 32)).all()
+        before = k[:, None, :] < k[:, :, None]
+    else:
+        before = (k[:, None, :] < k[:, :, None]) | (
+            (k[:, None, :] == k[:, :, None])
+            & (lanes[None, None, :] < lanes[None, :, None]))
+    rank = before.sum(axis=2)
+    out = np.empty(D * T, np.int64)
+    out[(np.arange(D)[:, None] * T + rank).reshape(-1)] = np.arange(D * T)
+    return out, narrow
+
+
+def _block_bits(widths, g_width, per):
+    return (per - 1).bit_length() + g_width + widths[1]
+
+
+def _block_docs(rg, rt, lo, widths, g_lo, g_width, rows, digit_bits):
+    """Batches of `per` = rows // T whole docs a CTA, each batch sorted by
+    (doc in batch, group, time) with local passes.  Returns (the
+    permutation, bits, passes)."""
+    D, T = rg.shape
+    per = rows // T
+    wt = widths[1]
+    bits = _block_bits(widths, g_width, per)
+    passes = -(-bits // digit_bits)
+    R = 1 << digit_bits
+    out = np.empty(D * T, np.int64)
+    for d0 in range(0, D, per):
+        nd = min(per, D - d0)
+        row0 = d0 * T
+        n = nd * T
+        pos = np.arange(n)
+        key = ((pos // T).astype(np.uint64) << np.uint64(g_width + wt)) \
+            | ((rg[d0:d0 + nd].reshape(-1).astype(np.int64) - g_lo)
+               .astype(np.uint64) << np.uint64(wt)) \
+            | (rt[d0:d0 + nd].reshape(-1).astype(np.int64) - lo[1]) \
+            .astype(np.uint64)
+        idx = row0 + pos
+        for q in range(passes):
+            digits = ((key >> np.uint64(q * digit_bits))
+                      & np.uint64(R - 1)).astype(np.int64)
+            order = _stage(digits, digit_bits)[0]
+            key, idx = key[order], idx[order]
+        out[row0:row0 + n] = idx
+    return out, bits, passes
+
+
+def lexsort_model(site, case, cluster_max=H100_CLUSTER,
+                  grid_blocks=H100_GRID, grid_bits=GRID_BITS):
     """The kernel's algorithm in numpy on one case (`site`: 'sibling' or
-    'register').  Returns (permutation [L] int32, info): info holds the
-    route, blocks, each key's width, the passes planned and the passes
-    skipped (their digit index)."""
+    'register') on a card whose largest cluster is `cluster_max` CTAs (0:
+    every L on the grid) and whose grid is `grid_blocks`.  Returns
+    (permutation [L] int32, info): info holds the readout's fields
+    (`lexsort_kernel.INFO_FIELDS`: route, ctas, digit_bits, bits,
+    passes, run, skipped (a list), barriers, in_range, rows, tiles,
+    cluster_max), the keys' widths and, on the warp route, whether its
+    keys were narrow.  Barriers before the plan: a cluster of more than
+    one CTA pays two (every peer started before the first push; the
+    ranges), one CTA or the grid one."""
     keys, sent = sibling_keys(*case) if site == 'sibling' \
         else register_keys(*case)
     L = keys[0].shape[0]
-    info = {'route': 'a' if L <= ONE_CTA_MAX else 'b', 'blocks': 0,
-            'widths': [], 'passes': 0, 'skipped': []}
+    route, ctas, rows = route_of(L, cluster_max, grid_blocks)
+    grid = route == 'grid'
+    digit_bits = grid_bits if grid else CLUSTER_BITS
+    info = {'route': route, 'ctas': ctas, 'digit_bits': digit_bits,
+            'bits': 0, 'passes': 0, 'run': 0, 'skipped': [],
+            'barriers': 0, 'in_range': 0, 'rows': rows,
+            'tiles': -(-L // rows) if grid and L else 0,
+            'cluster_max': cluster_max, 'widths': []}
     if L == 0:
         return np.zeros(0, np.int32), info
-    lo, widths, shifts, sentinel, passes = plan(keys, sent)
-    G = 1 if L <= ONE_CTA_MAX else min(-(-L // THREADS), grid_blocks)
-    per_block = -(-L // G)
-    span = -(-per_block // THREADS) * THREADS
-    seg = span // WARPS
-    info.update(blocks=G, widths=widths, passes=passes)
-    planes = digit_planes(keys, sent, lo, widths, shifts, sentinel, passes)
-    cur = np.arange(L, dtype=np.int64)
-    for q in range(passes):
-        dest = radix_pass(planes[q][cur], G, span, seg)
-        if dest is None:
-            info['skipped'].append(q)
-            continue
-        nxt = np.empty(L, np.int64)
-        nxt[dest] = cur
-        cur = nxt
-    return cur.astype(np.int32), info
+    first = 2 if not grid and ctas > 1 else 1
+    lo, widths, shifts, sentinel, bits = plan(keys, sent)
+    info.update(bits=bits, widths=widths)
+    if site == 'register':
+        rg, rt, n_groups = case
+        T = rg.shape[1]
+        g_lo, g_hi = int(rg.min()), int(rg.max())
+        g_width = (g_hi - g_lo).bit_length()
+        info['in_range'] = int(groups_in_range(rg, n_groups))
+        if info['in_range'] and T <= 32:
+            out, narrow = _warp_docs(rg, rt, lo, widths, g_lo, g_width)
+            info.update(route='warp', bits=0, barriers=first, narrow=narrow)
+            return out.astype(np.int32), info
+        if info['in_range'] and T <= rows and \
+                _block_bits(widths, g_width, rows // T) <= 64:
+            out, bbits, passes = _block_docs(rg, rt, lo, widths, g_lo,
+                                             g_width, rows, digit_bits)
+            info.update(route='block', bits=bbits, passes=passes,
+                        run=passes, barriers=first)
+            return out.astype(np.int32), info
+    w_lo, w_hi = composite(keys, sent, lo, widths, shifts, sentinel)
+
+    def cols_of(idx, at):
+        return window(w_lo[idx], w_hi[idx], at)
+    perm = _radix(cols_of, L, bits, rows, digit_bits, grid, first, info)
+    if not grid and ctas == 1:
+        info['barriers'] = first  # one CTA's passes: block barriers alone
+    return perm.astype(np.int32), info
