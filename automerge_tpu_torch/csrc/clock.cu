@@ -284,9 +284,12 @@ int launch(const int32_t* clock0, const int32_t* actor, const int32_t* seq,
       static_cast<size_t>(warp_words(kResident, C, A)) * warps *
       sizeof(int32_t);
   if (smem > 48 * 1024) {
+    // the ceiling, not this call's size: the attribute is the function's,
+    // so a call's own size could lower it under another thread's launch
     cudaError_t e = cudaFuncSetAttribute(
         schedule_kernel<kResident>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemMax));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int64_t blocks = (D + warps - 1) / warps;

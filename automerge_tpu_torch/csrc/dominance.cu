@@ -48,7 +48,8 @@
 //  * Long objects (the histogram does not fit a warp's share of shared
 //    memory): the start histogram lives in a global scratch row that the
 //    wrapper allocates, and three launches spread one object over many
-//    blocks: a scatter over element slices (atomic adds on the
+//    blocks (the object in blockIdx.y, launched in slices of 65,535
+//    objects): a scatter over element slices (atomic adds on the
 //    histogram, never on a visibility vector), an in-place scan per
 //    4096-bucket tile, and an op kernel that reads the start term as tile
 //    prefix + in-tile prefix and counts the other two terms directly
@@ -77,6 +78,11 @@ constexpr int kOpThreads = 256;
 constexpr int kStage = 1024;                    // long path: ops staged
 constexpr int kHistThreads = 256;
 constexpr int kHistPerThread = 8;
+//: long path: objects a launch takes (blockIdx.y); more go in slices
+constexpr int64_t kMaxObjsPerLaunch = 65535;
+//: long path: the op kernel's dynamic shared memory at most (the card's
+//: 227 KB a block less its static staging arrays)
+constexpr int64_t kLongOpsSmemMax = 227 * 1024 - 3 * kStage * 4;
 
 __device__ __forceinline__ int bucket(int32_t rank, int L) {
   return min(max(rank + 1, 0), L + 1);
@@ -372,9 +378,12 @@ extern "C" int amtpu_torch_dominance(
     const int words = static_cast<int>(short_words(L, T, K));
     const size_t smem = static_cast<size_t>(words) * 4 * kObjsPerBlock;
     if (smem > 48 * 1024) {
+      // the ceiling, not this call's size: the attribute is the
+      // function's, so a call's own size could lower it under another
+      // thread's launch
       cudaError_t err = cudaFuncSetAttribute(
           dominance_short, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
+          static_cast<int>(kShortMaxBytes * kObjsPerBlock));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     const int64_t blocks = (O + kObjsPerBlock - 1) / kObjsPerBlock;
@@ -385,33 +394,46 @@ extern "C" int amtpu_torch_dominance(
     return static_cast<int>(cudaGetLastError());
   }
 
-  if (scratch == nullptr || O > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const LongShape s = long_shape(L);
   int32_t* hist = static_cast<int32_t*>(scratch);
   int32_t* tilesum = hist + O * s.nbp;
   const size_t pre_bytes = static_cast<size_t>(s.n_tiles) * 4;
+  if (pre_bytes > static_cast<size_t>(kLongOpsSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (pre_bytes > 48 * 1024) {
+    // the ceiling, as on the short route
     cudaError_t err = cudaFuncSetAttribute(
         dominance_long_ops, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(pre_bytes));
+        static_cast<int>(kLongOpsSmemMax));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaError_t err = cudaMemsetAsync(hist, 0, O * s.nbp * 4, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t per_block = int64_t{kHistThreads} * kHistPerThread;
-  dominance_long_hist<<<dim3(static_cast<unsigned>((L + per_block - 1) /
-                                                   per_block),
-                             static_cast<unsigned>(O)),
-                        kHistThreads, 0, st>>>(v0, er, hist, L, s.nbp);
-  dominance_long_scan<<<dim3(static_cast<unsigned>(s.n_tiles),
-                             static_cast<unsigned>(O)),
-                        kScanThreads, 0, st>>>(hist, tilesum, s.nbp,
-                                               s.n_tiles);
-  dominance_long_ops<<<dim3(static_cast<unsigned>((T + kOpThreads - 1) /
-                                                  kOpThreads),
-                            static_cast<unsigned>(O)),
-                       kOpThreads, pre_bytes, st>>>(
-      er, oe, orank, od, ov, hist, tilesum, idx, L, T, K, s.nbp, s.n_tiles);
-  return static_cast<int>(cudaGetLastError());
+  // the objects in slices of at most kMaxObjsPerLaunch, each slice's
+  // pointers offset to its first object: the kernels index by blockIdx.y
+  for (int64_t o0 = 0; o0 < O; o0 += kMaxObjsPerLaunch) {
+    const unsigned n = static_cast<unsigned>(
+        O - o0 < kMaxObjsPerLaunch ? O - o0 : kMaxObjsPerLaunch);
+    const int64_t eo = o0 * L, to = o0 * T;
+    int32_t* h = hist + o0 * s.nbp;
+    int32_t* ts = tilesum + o0 * s.n_tiles;
+    dominance_long_hist<<<dim3(static_cast<unsigned>((L + per_block - 1) /
+                                                     per_block),
+                               n),
+                          kHistThreads, 0, st>>>(v0 + eo, er + eo, h, L,
+                                                 s.nbp);
+    dominance_long_scan<<<dim3(static_cast<unsigned>(s.n_tiles), n),
+                          kScanThreads, 0, st>>>(h, ts, s.nbp, s.n_tiles);
+    dominance_long_ops<<<dim3(static_cast<unsigned>((T + kOpThreads - 1) /
+                                                    kOpThreads),
+                              n),
+                         kOpThreads, pre_bytes, st>>>(
+        er + eo, oe + to, orank + to, od + to, ov + to, h, ts, idx + to, L,
+        T, K, s.nbp, s.n_tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -925,9 +925,11 @@ extern "C" int amtpu_torch_route_block(
   const int64_t smem =
       (fast_words > scan_words ? fast_words : scan_words) * sizeof(int32_t);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  // the ceiling, not this call's size: the attribute is the function's,
+  // so a call's own size could lower it under another thread's launch
   e = cudaFuncSetAttribute(query_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+                           static_cast<int>(kSmemMax));
   if (e != cudaSuccess) return static_cast<int>(e);
   query_kernel<<<static_cast<unsigned>(D * p.nQ), p.qthreads,
                  static_cast<size_t>(smem), st>>>(c, s, p);

@@ -637,9 +637,12 @@ extern "C" int amtpu_torch_route(const void* elem_obj, const void* elem_rank,
       (front + L + 1) * static_cast<int64_t>(sizeof(int32_t)) <= kSmemMax;
   const size_t prep_smem =
       (front + (start_in_smem ? L + 1 : 0)) * sizeof(int32_t);
+  // both kernels' attributes at the ceiling, not this call's sizes: the
+  // attribute is the function's, so a call's own size could lower it
+  // under another thread's launch
   cudaError_t e = cudaFuncSetAttribute(
       prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(prep_smem));
+      static_cast<int>(kSmemMax));
   if (e != cudaSuccess) return static_cast<int>(e);
   prep_kernel<<<static_cast<unsigned>(D), threads, prep_smem, s>>>(
       c, scr, flags, counters, g, chunk, front, start_in_smem);
@@ -648,7 +651,7 @@ extern "C" int amtpu_torch_route(const void* elem_obj, const void* elem_rank,
   const size_t q_smem = (pad(g.W) + 2 * kChunk) * sizeof(int32_t);
   e = cudaFuncSetAttribute(query_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(q_smem));
+                           static_cast<int>(kSmemMax));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int q_threads = 2 * L >= 8192 ? 1024 : kChunk;
   query_kernel<<<static_cast<unsigned>(D * g.nC), q_threads, q_smem, s>>>(

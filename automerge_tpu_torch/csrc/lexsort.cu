@@ -95,6 +95,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -1300,13 +1303,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Per device: the largest cluster the card schedules (0: none) and the
-// grid's co-resident blocks (0: not yet asked).
+// grid's co-resident blocks.  Filled once under g_state_mutex, then
+// published by a release store of g_ready[dev]; read only after an
+// acquire load of it finds true, so a thread sees all of a device's
+// state or none of it.
 struct DeviceState {
-  bool ready;
   int cluster_max;
   int grid_blocks;
 };
-DeviceState g_state[kMaxDevices];
+std::mutex g_state_mutex;
+std::atomic<bool> g_ready[kMaxDevices];
+DeviceState g_state[kMaxDevices];  // guarded-by: g_state_mutex
 
 int current_device(int* dev) {
   cudaError_t e = cudaGetDevice(dev);
@@ -1360,43 +1367,56 @@ int cluster_fits(int size, bool* fits) {
   return 0;
 }
 
-// The device's routes: attributes set, the largest cluster and the grid.
-int device_state(int dev, DeviceState** out) {
-  DeviceState& s = g_state[dev];
-  if (!s.ready) {
-    int err = set_attributes<SiblingKeys>();
-    if (!err) err = set_attributes<RegisterKeys>();
+// The device's routes, asked for once: attributes set, the largest
+// cluster and the grid.  A failure stores nothing, so the next call asks
+// again.  Caller holds g_state_mutex.
+int init_state(int dev, DeviceState* out) {
+  int err = set_attributes<SiblingKeys>();
+  if (!err) err = set_attributes<RegisterKeys>();
+  if (err) return err;
+  int size = kClusterMax;
+  for (; size >= 1; size /= 2) {
+    bool a = false, b = false;
+    err = cluster_fits<SiblingKeys>(size, &a);
+    if (!err) err = cluster_fits<RegisterKeys>(size, &b);
     if (err) return err;
-    int size = kClusterMax;
-    for (; size >= 1; size /= 2) {
-      bool a = false, b = false;
-      err = cluster_fits<SiblingKeys>(size, &a);
-      if (!err) err = cluster_fits<RegisterKeys>(size, &b);
-      if (err) return err;
-      if (a && b) break;
-    }
-    int coop = 0, sms = 0, pa = 0, pb = 0;
-    cudaError_t e = cudaDeviceGetAttribute(&coop,
-                                           cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (!coop) return static_cast<int>(cudaErrorNotSupported);
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const size_t smem = tile_bytes<kDigitBits>(kTileMax);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &pa, grid_kernel<SiblingKeys>, kThreads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &pb, grid_kernel<RegisterKeys>, kThreads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int per_sm = pa < pb ? pa : pb;
-    if (per_sm < 1)
-      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    s.cluster_max = size > 0 ? size : 0;
-    s.grid_blocks = sms * per_sm;
-    s.ready = true;
+    if (a && b) break;
   }
-  *out = &s;
+  int coop = 0, sms = 0, pa = 0, pb = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&coop,
+                                         cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = tile_bytes<kDigitBits>(kTileMax);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &pa, grid_kernel<SiblingKeys>, kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &pb, grid_kernel<RegisterKeys>, kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per_sm = pa < pb ? pa : pb;
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  out->cluster_max = size > 0 ? size : 0;
+  out->grid_blocks = sms * per_sm;
+  return 0;
+}
+
+// The device's state, filled at its first call from any thread; after
+// that one acquire load and no lock.
+int device_state(int dev, const DeviceState** out) {
+  if (!g_ready[dev].load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(g_state_mutex);
+    if (!g_ready[dev].load(std::memory_order_relaxed)) {
+      DeviceState s;
+      const int err = init_state(dev, &s);
+      if (err) return err;
+      g_state[dev] = s;
+      g_ready[dev].store(true, std::memory_order_release);
+    }
+  }
+  *out = &g_state[dev];
   return 0;
 }
 
@@ -1418,7 +1438,7 @@ int launch(const K& keys, int64_t L, void* out, void* scratch, void* info,
   int dev = 0;
   int err = current_device(&dev);
   if (err) return err;
-  DeviceState* st = nullptr;
+  const DeviceState* st = nullptr;
   err = device_state(dev, &st);
   if (err) return err;
   int32_t* o = static_cast<int32_t*>(out);
@@ -1465,7 +1485,7 @@ int launch(const K& keys, int64_t L, void* out, void* scratch, void* info,
 extern "C" int64_t amtpu_torch_lexsort_scratch(int64_t L) {
   if (L <= 0) return 0;
   int dev = 0;
-  DeviceState* st = nullptr;
+  const DeviceState* st = nullptr;
   if (current_device(&dev) || device_state(dev, &st)) return -1;
   if (L <= cluster_capacity(*st)) return 0;
   return grid_layout(L, st->grid_blocks, grid_rows(L, st->grid_blocks))

@@ -97,6 +97,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -898,10 +901,50 @@ __global__ void __launch_bounds__(kThreads) grid_kernel(Cols c,
   ph.end(sync);
 }
 
-// Per device: the shared-memory attributes set, route (b)'s co-resident
-// blocks (0: not yet asked).
-bool g_smem_set[kMaxDevices];
-int g_grid_blocks[kMaxDevices];
+//: route (b)'s dynamic shared memory: the level-2 splitters
+constexpr int kGridSmem = 16 * kTopCap;
+
+// Per device: route (b)'s co-resident blocks.  Set once under
+// g_state_mutex, after both kernels' shared-memory attributes, then
+// published by a release store of g_ready[dev]; a launch reads it, or
+// launches either kernel, only after an acquire load of it finds true.
+std::mutex g_state_mutex;
+std::atomic<bool> g_ready[kMaxDevices];
+int g_grid_blocks[kMaxDevices];  // guarded-by: g_state_mutex
+
+// The device's launch state, set at its first call from any thread: the
+// shared-memory attributes of both routes and route (b)'s co-resident
+// blocks.  A failure publishes nothing, so the next call tries again.
+// After the first call: one acquire load and no lock.
+int device_ready(int dev) {
+  if (g_ready[dev].load(std::memory_order_acquire)) return 0;
+  std::lock_guard<std::mutex> lock(g_state_mutex);
+  if (g_ready[dev].load(std::memory_order_relaxed)) return 0;
+  cudaError_t e = cudaSuccess;
+  if (kOneCtaMax > 0) {
+    e = cudaFuncSetAttribute(one_cta_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(one_cta_smem(kOneCtaMax)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = cudaFuncSetAttribute(grid_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kGridSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int coop = 0, sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_kernel,
+                                                    kThreads, kGridSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  g_grid_blocks[dev] = sms * per_sm;
+  g_ready[dev].store(true, std::memory_order_release);
+  return 0;
+}
 
 }  // namespace
 
@@ -932,39 +975,13 @@ extern "C" int amtpu_torch_linearize(const void* obj, const void* parent,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
-  constexpr int kGridSmem = 16 * kTopCap;
-  if (!g_smem_set[dev]) {
-    if (kOneCtaMax > 0) {
-      e = cudaFuncSetAttribute(
-          one_cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(one_cta_smem(kOneCtaMax)));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    e = cudaFuncSetAttribute(grid_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kGridSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    g_smem_set[dev] = true;
-  }
+  const int err = device_ready(dev);
+  if (err) return err;
   if (L <= kOneCtaMax) {
     one_cta_kernel<<<1, kThreads, one_cta_smem(L), s>>>(c);
     return static_cast<int>(cudaGetLastError());
   }
   if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (g_grid_blocks[dev] == 0) {
-    int coop = 0, sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (!coop) return static_cast<int>(cudaErrorNotSupported);
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_kernel,
-                                                      kThreads, kGridSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm < 1)
-      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    g_grid_blocks[dev] = sms * per_sm;
-  }
   const unsigned blocks = static_cast<unsigned>(g_grid_blocks[dev]);
   int32_t* scr = static_cast<int32_t*>(scratch);
   void* args[] = {&c, &scr};

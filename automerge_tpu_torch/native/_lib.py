@@ -14,6 +14,7 @@ latch at the first batch of the process that loaded it.
 
 import ctypes
 import os
+import threading
 
 from .. import buildcache
 
@@ -157,12 +158,16 @@ def _load():
 
 
 _lib = None
+#: _lib is loaded once under this lock, whichever threads ask first
+_LOAD_LOCK = threading.Lock()
 
 
 def lib():
     global _lib
     if _lib is None:
-        _lib = _load()
+        with _LOAD_LOCK:
+            if _lib is None:
+                _lib = _load()
     return _lib
 
 

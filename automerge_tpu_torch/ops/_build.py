@@ -80,7 +80,10 @@ KERNELS = {
     },
 }
 
+#: kernel name -> its loaded library, filled once under _LOAD_LOCK (the
+#: chip threads of a mesh pool reach a kernel's first call together)
 _loaded = {}
+_LOAD_LOCK = threading.Lock()
 
 #: cooperative launches (the large-L routes of the linearize and lexsort
 #: kernels) wait for the device's previous one when it went on another
@@ -119,15 +122,20 @@ def build_all():
 
 
 def kernel(name):
-    """The ctypes library of kernel `name`, built and loaded on first use."""
+    """The ctypes library of kernel `name`, built and loaded on first use:
+    once, whichever threads ask at once; later calls take no lock."""
     lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(buildcache.finish(_start(name)))
-        for fn_name, (restype, argtypes) in KERNELS[name].items():
-            fn = getattr(lib, fn_name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(buildcache.finish(_start(name)))
+            for fn_name, (restype, argtypes) in KERNELS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _loaded[name] = lib
     return lib
 
 

@@ -28,6 +28,7 @@ walks the caller's chunks; `block_branch_counts` counts them and
 """
 
 import contextlib
+import threading
 
 import torch
 
@@ -47,6 +48,9 @@ EXACT_COUNTS = 1 << 24
 _BRANCH_COUNTS = {}
 #: device -> the sp-block route's branch counters (`block_branch_counts`)
 _BLOCK_BRANCH_COUNTS = {}
+#: both tables are filled under this lock: a second tensor for a device
+#: would leave the first thread's launches counting where nobody reads
+_COUNTERS_LOCK = threading.Lock()
 
 
 def scratch_for(lib, O, L, T, chunk, device):
@@ -115,14 +119,18 @@ def dominance_grouped_auto(vis0, elem_rank, op_elem, op_rank, op_delta,
 
 def _counters(table, device):
     """The int64 [2] device counters of `table` on `device`, made zero at
-    first use."""
+    first use: one tensor a device, whichever threads ask at once."""
     dev = torch.device(device)
     if dev.type == 'cuda' and dev.index is None:
         dev = torch.device('cuda', torch.cuda.current_device())
     counts = table.get(dev)
-    if counts is None:
-        counts = torch.zeros((2,), dtype=torch.int64, device=dev)
-        table[dev] = counts
+    if counts is not None:
+        return counts
+    with _COUNTERS_LOCK:
+        counts = table.get(dev)
+        if counts is None:
+            counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+            table[dev] = counts
     return counts
 
 

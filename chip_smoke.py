@@ -12,6 +12,27 @@ sp-block route `dominance_block.cu`, the RGA linearize kernel
 sort `lexsort.cu`, which every path that sorts on the card runs: the
 step and the resident routes), then:
 
+  0. runs the first-call lane (right after the build, before this
+     process calls any kernel; `first_call_lane`): six fresh processes
+     of this script, two at a time, each starting eight threads on eight
+     CUDA streams of `cuda:0`, released together by a barrier, whose
+     calls are the process's first of the lexsort kernel (the sibling
+     sort on its grid route at 131,072 rows, the register order per doc
+     at D = 2,048, T = 32), the linearize kernel (16,384 rows on route
+     (b), 4,096 on route (a)), K2 on its long route, then, each at a
+     larger shape and on two threads a smaller one, of the kernels that
+     set their shared-memory attribute (K2's short route and the
+     schedule above 48 KB a block, the whole-doc route, the sp-block
+     kernel), the barrier releasing every thread into each call, all on
+     one seeded input set: every output bit-equal to its plain version
+     and every route readout equal across the threads and processes; beside
+     them one more fresh process in which
+     a `MeshDocPool(4)` (four chip threads on `cuda:0`) takes config 3's
+     first 512 docs as its first batch, every doc's bytes equal to a CPU
+     pool's.  A child that dies by a signal fails the run with its
+     status and stderr.  The kernels' per-device state and the library
+     caches are per process, so only fresh processes can show a race at
+     first use;
   1. applies the headline catch-up batch (bench config 3: 4096 Text docs,
      8 actors, 2 rounds, 16 ops per change, about 1.06 M ops) as ONE
      `apply_batch_bytes` on an `automerge_tpu_torch` pool on the card,
@@ -62,13 +83,13 @@ step and the resident routes), then:
      doc with every other doc's bytes equal to the fault-free run's, two
      transient faults must retry to equal bytes with a rollback, and no
      C++ batch handle may be left live;
-  8. runs the cold start of `bench.py --coldstart` at 50,000 of its
-     100,000 docs (850,000 changes; cut for the time limit): builds the corpus on a card pool (K1 and K2
-     launch), compacts every other doc, saves all into a durable
-     `ColdStore`, restores it into a card `ShardedNativePool(4)` serially
-     and fanned out (every doc counted, sampled saves and patches equal
-     to the source's), restores the first 4,096 docs again through the
-     replay arm on four shard threads (K1 and K2 launch, patches equal
+  8. runs the cold start of `bench.py --coldstart` at 50,000 of its 100,000
+     docs (850,000 changes; cut for the time limit): builds the corpus on a
+     card pool (K1 and K2 launch), compacts every other doc, saves all into
+     a durable `ColdStore`, restores it into a card `ShardedNativePool(4)`
+     serially and fanned out (every doc counted, sampled saves and patches
+     equal to the source's), restores the first 4,096 docs again through
+     the replay arm on four shard threads (K1 and K2 launch, patches equal
      to the arena-direct restore's), and quarantines a blob corrupted on
      disk while every other doc restores;
   9. applies one hot map key beside a list object with 40, 200 and 300
@@ -90,16 +111,17 @@ step and the resident routes), then:
      C++ stage times `cxx.*` among them) and counters of both routes,
      and times one resident dispatch alone;
   11. holds each kernel against its plain PyTorch version on the card,
-     bit-equal (integer outputs, tolerance 0), at the inputs the main
-     paths gave it, at random shapes and at the edges of each design
-     (register groups of exactly W and W + 1 rows across tile edges;
-     elementless dominance ops at chunk edges, objects past the shared-
-     memory budget, one 100,000-element list; member windows at every
-     W from 8 to 1024, all empty, full of concurrent members, same-actor
+     bit-equal (integer outputs, tolerance 0), at the inputs the main paths
+     gave it, at random shapes and at the edges of each design (register
+     groups of exactly W and W + 1 rows across tile edges; elementless
+     dominance ops at chunk edges, objects past the shared-memory budget,
+     one 100,000-element list, 65,537 objects on the long route, past the
+     grid's y limit, tiled from 8 seeded ones; member windows at every W
+     from 8 to 1024, all empty, full of concurrent members, same-actor
      same-seq duplicates, deletes winning, one actor, tier chunks with
-     groups of 1, W, W + 1 and 71 rows, repeated members, indexes
-     clipped at T and a group too long for a block's span), and times
-     kernel and plain version with CUDA events beside each call's bound
+     groups of 1, W, W + 1 and 71 rows, repeated members, indexes clipped
+     at T and a group too long for a block's span), and times kernel and
+     plain version with CUDA events beside each call's bound
      (every call of a driven path is held bit-equal; the first call of
      each path is timed, and of the 64-pool catch-up and the fault lanes
      the first batch's member calls).  The step's two kernels (the
@@ -295,6 +317,9 @@ import threading
 import time
 import traceback
 
+#: when this process started running the script (the lane's children
+#: report their start-up from it)
+T_START = time.perf_counter()
 #: the checkout this script runs from
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
@@ -1526,6 +1551,7 @@ def kernel_cases(torch, np, card):
         e, _ = check_dominance(torch, card, label, on_card(dominance_case(
             np, rs, O, L, T, all_visible=(O == 1))))
         err2 = max(err2, e)
+    dominance_past_grid_y(torch, np, card, rs)
     return err1, err2
 
 
@@ -1932,10 +1958,10 @@ def fault_phase(card, drive, K1, K2, K3, workloads):
                 'no live batch handle; %s on %s' % (lane, delta, card))
 
 
-#: the cold-start corpus: half of `bench.py --coldstart`'s default of
-#: 100,000 docs (cut so that the whole script keeps inside its time
-#: limit), its sample stride for the save and patch comparison, and the
-#: docs the replay arm restores
+#: the cold-start corpus: a quarter of `bench.py --coldstart`'s default
+#: of 100,000 docs (cut so that the whole script, first-call lane
+#: included, keeps inside its time limit), its sample stride for the save
+#: and patch comparison (32 docs), and the docs the replay arm restores
 COLDSTART_DOCS = 50000
 COLDSTART_SAMPLE = 1562
 COLDSTART_REPLAY_DOCS = 4096
@@ -4105,6 +4131,380 @@ def hostile_staging(torch, np, card, workloads, NativeDocPool, R, packed):
         % (n[0] - n_step, card))
 
 
+#: the first-call lane: fresh processes of FIRST_CALL_THREADS threads
+#: each, FIRST_CALL_AT_ONCE at a time, and one more in which a
+#: MeshDocPool(FIRST_CALL_DP) takes config 3's first FIRST_CALL_DOCS docs
+FIRST_CALL_PROCS, FIRST_CALL_AT_ONCE, FIRST_CALL_THREADS = 6, 2, 8
+#: the threads of a child that take a call's smaller shape, where it has one
+FIRST_CALL_SMALL = 2
+FIRST_CALL_DP, FIRST_CALL_DOCS = 4, 512
+#: a fresh process's limit (seconds)
+FIRST_CALL_TIMEOUT = 240
+#: the calls every thread makes, in this order, all threads released into
+#: each by the barrier: the sibling sort on the grid route (with its
+#: scratch query), the register order per doc, linearize on route (b)
+#: and (a), K2 on its long route; then the kernels that set their
+#: shared-memory attribute, each at a larger shape and, on
+#: FIRST_CALL_SMALL threads, a smaller one: K2's short route and the
+#: schedule above 48 KB a block at both (62.0 and 52.0 KiB, 72.0 and
+#: 63.0 KiB), the whole-doc route and the sp-block kernel (which set it
+#: on every call) at one doc of 16,384 elements and 10,000 ops beside 64
+#: docs of 300 and 700.  (name, size, smaller size or None)
+FIRST_CALLS = (('sibling_sort', 131072, None),
+               ('register_sort', (2048, 32), None),
+               ('linearize_b', 16384, None), ('linearize_a', 4096, None),
+               ('dominance_long', (16, 8192, 64), None),
+               ('dominance_short', (16, 7680, 64), (16, 6400, 64)),
+               ('schedule', (64, 64, 32), (64, 56, 32)),
+               ('route', (1, 16384, 10000, 1), (64, 300, 700, 5)),
+               ('route_block', (1, 16384, 10000, 1), (64, 300, 700, 5)))
+#: K2's long route past the grid's y limit: objects, elements, ops, and
+#: the seeded objects tiled over them
+WIDE_DOMINANCE = (65537, 8192, 64, 8)
+
+
+def first_call_size(i, size, small):
+    """The shape thread i takes of a call of the lane."""
+    return small if small is not None and \
+        i >= FIRST_CALL_THREADS - FIRST_CALL_SMALL else size
+
+
+def first_call_inputs(torch, np):
+    """The lane's inputs (seed 100, the same in every process) on the
+    card, each with a readout tensor where its call fills one: {(call,
+    size): (args, info or None)}."""
+    from automerge_tpu_torch.ops import dominance_kernel, lexsort_kernel
+    from automerge_tpu_torch.ops import linearize_kernel
+    from torch_lexsort_cases import sized_forest
+    from torch_step_cases import dominance_indexes_case, schedule_case
+    on_card = cases_on_card(torch, np)
+    rs = np.random.RandomState(100)
+
+    def info(words):
+        return torch.zeros((words,), dtype=torch.int32, device='cuda')
+
+    def make(name, size):
+        if name == 'sibling_sort':
+            return (on_card(sized_forest(rs, size)),
+                    info(lexsort_kernel.INFO_WORDS))
+        if name == 'register_sort':
+            rg = rs.randint(0, 8, size).astype(np.int32)
+            rg[rs.rand(*size) < 0.2] = -1
+            rt = rs.randint(0, 2 * size[1] + 1, size).astype(np.int32)
+            return (on_card((rg, rt)) + [8], info(lexsort_kernel.INFO_WORDS))
+        if name.startswith('linearize'):
+            n_iters = int(np.ceil(np.log2(size))) + 1
+            return (on_card(sized_forest(rs, size)) + [n_iters],
+                    info(linearize_kernel.INFO_WORDS))
+        if name.startswith('dominance'):
+            return on_card(dominance_case(np, rs, *size)), None
+        if name == 'schedule':
+            return on_card(schedule_case(rs, *size)), None
+        args = on_card(dominance_indexes_case(rs, *size))
+        if name == 'route_block':
+            # the docs' object starts, which the block kernel takes
+            args.append(dominance_kernel.object_starts(args[0]))
+        return args, None
+    return {(name, size): make(name, size)
+            for name, *sizes in FIRST_CALLS for size in sizes
+            if size is not None}
+
+
+def first_call(name, args, info):
+    """One kernel wrapper's call of the lane."""
+    from automerge_tpu_torch.ops import clock_kernel, dominance_kernel
+    from automerge_tpu_torch.ops import lexsort_kernel, linearize_kernel
+    if name == 'sibling_sort':
+        return lexsort_kernel.sibling_sort_cuda(*args, info=info)
+    if name == 'register_sort':
+        return lexsort_kernel.register_sort_cuda(*args, info=info)
+    if name.startswith('linearize'):
+        return linearize_kernel.linearize_cuda(*args, info=info)
+    if name.startswith('dominance'):
+        return dominance_kernel.dominance_grouped_cuda(*args, chunk=64)
+    if name == 'schedule':
+        return clock_kernel.schedule_queue_cuda(*args)
+    if name == 'route':
+        return dominance_kernel.dominance_indexes_cuda(*args, chunk=128)
+    return dominance_kernel.dominance_indexes_block_cuda(
+        *args[:-1], chunk=64, starts=args[-1])
+
+
+def first_call_plain(name, args):
+    """The plain version of `first_call` (torch on the card)."""
+    from automerge_tpu_torch.ops import clock, list_rank
+    from automerge_tpu_torch.parallel import mesh
+    if name == 'sibling_sort':
+        return list_rank.sibling_sort(*args)
+    if name == 'register_sort':
+        return mesh.register_order(*args)
+    if name.startswith('linearize'):
+        return list_rank.linearize(*args)
+    if name.startswith('dominance'):
+        return list_rank.dominance_grouped(*args, chunk=64)
+    if name == 'schedule':
+        return clock.schedule_queue_batch(*args)
+    if name == 'route':
+        return list_rank.dominance_indexes(*args, chunk=128)
+    return list_rank.dominance_indexes(*args[:-1], chunk=64, block=True)
+
+
+def first_call_equal(name, args, got, want):
+    """Whether a call's output is bit-equal to its plain version's (K2's
+    where op_valid holds; the schedule's order and clock both)."""
+    if name.startswith('dominance'):
+        got, want = got[args[5]], want[args[5]]
+    pairs = zip(got, want) if name == 'schedule' else [(got, want)]
+    return all(g.shape == w.shape and bool((g == w).all())
+               for g, w in pairs)
+
+
+def first_call_readout(name, info):
+    """A call's route readout without its clock stamps."""
+    from automerge_tpu_torch.ops import lexsort_kernel
+    from torch_linearize_cases import INFO_STAMPS
+    if name in ('sibling_sort', 'register_sort'):
+        ro = lexsort_kernel.readout(info)
+        return {k: v for k, v in ro.items()
+                if k not in ('plan_ns', 'pass_ns', 'end_ns')}
+    return info.tolist()[:INFO_STAMPS]
+
+
+def first_call_child(torch, np):
+    """One fresh process of the first-call lane: FIRST_CALL_THREADS
+    threads, each on its own CUDA stream on cuda:0, make this process's
+    first calls of the kernels (FIRST_CALLS in order), a barrier
+    releasing every thread into each call together, so that every
+    library load, every kernel's once-per-device state and every
+    shared-memory attribute is reached by several threads at once (at
+    two shapes where a call has a smaller one).  After every thread has
+    joined, each output is held bit-equal to its plain version and K2's
+    shapes to their routes (long, short).  Prints one JSON line,
+    {'readouts': [per thread {call: readout}], 'mismatches', 'wall_s',
+    'stages_s'}; returns 0 when every output is equal.  Every thread of
+    a shape takes the same inputs, so the plain versions run once a
+    shape and every thread's readouts must agree."""
+    from automerge_tpu_torch.ops import _build, dominance_kernel
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    t_ready = time.perf_counter()
+    shared = first_call_inputs(torch, np)
+    inputs = [{key: (args, None if info is None else torch.zeros_like(info))
+               for key, (args, info) in shared.items()}
+              for _ in range(FIRST_CALL_THREADS)]
+    streams = [torch.cuda.Stream(dev) for _ in range(FIRST_CALL_THREADS)]
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(FIRST_CALL_THREADS, timeout=60)
+    outs = [{} for _ in range(FIRST_CALL_THREADS)]
+    errors = []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                for name, size, small in FIRST_CALLS:
+                    key = (name, first_call_size(i, size, small))
+                    barrier.wait()
+                    outs[i][name] = first_call(name, *inputs[i][key])
+        except Exception as e:
+            errors.append('thread %d: %s: %s' % (i, type(e).__name__, e))
+            barrier.abort()
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(FIRST_CALL_THREADS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    t_check = time.perf_counter()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError('first calls: %s, threads alive %s' % (
+            errors, [th.is_alive() for th in threads]))
+    mismatches, readouts = [], []
+    plain = {key: first_call_plain(key[0], args)
+             for key, (args, _) in shared.items()}
+    for i in range(FIRST_CALL_THREADS):
+        readouts.append({})
+        for name, size, small in FIRST_CALLS:
+            key = (name, first_call_size(i, size, small))
+            args, info = inputs[i][key]
+            if not first_call_equal(name, args, outs[i][name], plain[key]):
+                mismatches.append('thread %d %s %s' % (i, name, key[1]))
+            if info is not None:
+                readouts[i][name] = first_call_readout(name, info)
+    lib = _build.kernel('dominance')
+    for name, size in shared:
+        if not name.startswith('dominance'):
+            continue
+        long_route = dominance_kernel.scratch_for(lib, *size, 64,
+                                                  dev) is not None
+        if long_route != (name == 'dominance_long'):
+            mismatches.append('%s %s: the %s route' % (
+                name, size, 'long' if long_route else 'short'))
+    print(json.dumps({'readouts': readouts, 'mismatches': mismatches,
+                      'wall_s': wall, 'stages_s': {
+                          'start': t_ready - T_START,
+                          'inputs': t - t_ready,
+                          'check': time.perf_counter() - t_check}}),
+          flush=True)
+    return 1 if mismatches else 0
+
+
+def first_call_mesh_child(torch):
+    """The lane's mesh process: a MeshDocPool(FIRST_CALL_DP), its chip
+    threads all on cuda:0, takes config 3's first FIRST_CALL_DOCS docs
+    as this process's first batch, so that its threads make the first
+    kernel calls; every doc's patch bytes must equal a CPU pool's.
+    Prints one JSON line ({'docs', 'launches', 'wall_s'}); returns 0 when
+    every doc is equal and K1, K2 and the linearize kernel launched."""
+    import msgpack
+
+    from automerge_tpu_torch import trace, workloads
+    from automerge_tpu_torch.native import NativeDocPool
+    from automerge_tpu_torch.native.mesh_pool import MeshDocPool
+    t_ready = time.perf_counter()
+    batch = workloads.build_config_3(random.Random(7),
+                                     n_docs=FIRST_CALL_DOCS)
+    payload = msgpack.packb({str(k): v for k, v in batch.items()},
+                            use_bin_type=True)
+    trace.reset()
+    t = time.perf_counter()
+    got = MeshDocPool(FIRST_CALL_DP).apply_batch_bytes(payload)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    metrics = trace.snapshot()['metrics']
+    launches = {k: int(v) for k, v in metrics.items()
+                if k.startswith('launch.')}
+    want = patch_slices(NativeDocPool(device='cpu').apply_batch_bytes(
+        payload))
+    got = patch_slices(got)
+    differ = sorted(k for k in want if got.get(k) != want[k])
+    print(json.dumps({'docs': len(got), 'differ': differ[:8],
+                      'launches': launches, 'wall_s': wall,
+                      'start_s': t_ready - T_START,
+                      'end_s': time.perf_counter() - T_START}), flush=True)
+    missing = [k for k in ('launch.registers', 'launch.dominance',
+                           'launch.linearize') if not launches.get(k)]
+    return 1 if differ or len(got) != len(want) or missing else 0
+
+
+def _child(kind):
+    """A fresh process of this script in lane mode `kind`."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--first-call-child',
+         kind], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _reap(kind, proc):
+    """A child's JSON line; fails with its exit status and stderr when it
+    died by a signal, exited nonzero or printed no result."""
+    try:
+        out, err = proc.communicate(timeout=FIRST_CALL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    rc = proc.returncode
+    lines = out.decode(errors='replace').strip().splitlines()
+    if rc != 0 or not lines:
+        why = 'signal %d' % -rc if rc < 0 else 'exit %d' % rc
+        raise AssertionError('first-call lane: %s child died (%s):\n%s\n%s'
+                             % (kind, why, '\n'.join(lines[-5:]),
+                                err.decode(errors='replace')[-4000:]))
+    return json.loads(lines[-1])
+
+
+def first_call_lane(card):
+    """The first-call lane: FIRST_CALL_PROCS fresh processes of
+    `first_call_child`, FIRST_CALL_AT_ONCE at a time, beside one of
+    `first_call_mesh_child`.  The per-device state and the library caches
+    are per process, so only a fresh process's first calls can race.
+    Every child must exit 0 (a signal or an unequal output fails the
+    lane), every thread's route readouts must be equal in every process
+    (same inputs), and the routes the lane aims at must be the ones
+    taken: the sibling sort on the grid, linearize's 16,384 rows on
+    route (b) and 4,096 on route (a)."""
+    from torch_linearize_cases import INFO_GRID, INFO_ROUTE, ROUTE_TOUR
+    t0 = time.perf_counter()
+    mesh = _child('mesh')
+    try:
+        # FIRST_CALL_AT_ONCE slots, each refilled as soon as its child ends
+        with concurrent.futures.ThreadPoolExecutor(FIRST_CALL_AT_ONCE) as ex:
+            results = list(ex.map(
+                lambda _: _reap('threads', _child('threads')),
+                range(FIRST_CALL_PROCS)))
+        mesh_out = _reap('mesh', mesh)
+    finally:
+        if mesh.poll() is None:
+            mesh.kill()
+            mesh.communicate()
+    wall = time.perf_counter() - t0
+    first = results[0]['readouts']
+    for n, r in enumerate(results):
+        if any(ro != first[0] for ro in r['readouts']):
+            raise AssertionError('first-call lane: process %d\'s route '
+                                 'readouts differ from its first thread\'s '
+                                 'or process 0\'s:\n%s\n%s'
+                                 % (n, r['readouts'], first[0]))
+    ro = first[0]
+    if ro['sibling_sort']['route'] != 'grid' or \
+            ro['linearize_b'][INFO_GRID] != 1 or \
+            ro['linearize_a'][INFO_GRID] != 0 or \
+            ro['linearize_b'][INFO_ROUTE] != ROUTE_TOUR:
+        raise AssertionError('first-call lane: routes %s' % ro)
+    log('first-call lane: %d fresh processes x %d threads (%d at a time) '
+        'and one MeshDocPool(%d) process, every child exit 0, every output '
+        'bit-equal to its plain version, every route readout equal (the '
+        'sibling sort on the grid, the register order on the %s route, '
+        'linearize on routes b and a), K2 long and short, the schedule, '
+        'the route and the block kernel at two shapes each (%d threads at '
+        'the smaller); threads\' walls %s s, each child\'s '
+        'start-up, inputs and checks %s s; mesh: %d docs equal to a CPU '
+        'pool\'s, first batch %.3f s (start-up %.2f s, %.2f s in all), '
+        'launches %s; lane %.1f s wall on %s' % (
+            FIRST_CALL_PROCS, FIRST_CALL_THREADS, FIRST_CALL_AT_ONCE,
+            FIRST_CALL_DP, ro['register_sort']['route'], FIRST_CALL_SMALL,
+            [round(r['wall_s'], 3) for r in results],
+            [[round(r['stages_s'][k], 2) for k in ('start', 'inputs', 'check')]
+             for r in results], mesh_out['docs'],
+            mesh_out['wall_s'], mesh_out['start_s'], mesh_out['end_s'],
+            mesh_out['launches'], wall, card))
+
+
+def dominance_past_grid_y(torch, np, card, rs):
+    """K2's long route at WIDE_DOMINANCE's 65,537 objects (past the grid's
+    y limit of 65,535, so the launch goes in two slices): 8 seeded
+    objects tiled over them, the kernel's output bit-equal to the plain
+    version of those 8 objects repeated (where op_valid holds; a plain
+    call at the full count would not fit); then the kernel's time."""
+    from automerge_tpu_torch.ops import _build, dominance_kernel, list_rank
+    O, L, T, n = WIDE_DOMINANCE
+    case = cases_on_card(torch, np)(dominance_case(np, rs, n, L, T))
+    reps = -(-O // n)
+    wide = [x.repeat(reps, 1)[:O] for x in case]
+    if dominance_kernel.scratch_for(_build.kernel('dominance'), O, L, T, 64,
+                                    wide[0].device) is None:
+        raise AssertionError('dominance O=%d L=%d T=%d: not the long route'
+                             % (O, L, T))
+    got = dominance_kernel.dominance_grouped_cuda(*wide, chunk=64)
+    want = list_rank.dominance_grouped(*case, chunk=64).repeat(reps, 1)[:O]
+    ov = wide[5]
+    bad = int((got[ov] != want[ov]).sum())
+    if bad:
+        raise AssertionError('dominance O=%d L=%d T=%d (tiled): %d '
+                             'mismatches' % (O, L, T, bad))
+    del got, want
+    ms = device_ms(torch, lambda: dominance_kernel.dominance_grouped_cuda(
+        *wide, chunk=64), reps=3, rounds=3)
+    bound, by = dominance_bound(wide, 64)
+    gb = sum(x.numel() * x.element_size() for x in wide) / 1e9
+    log('dominance O=%d L=%d T=%d (long route in two slices, %d seeded '
+        'objects tiled, %.2f GB of inputs): bit-equal to the plain version '
+        'of the %d objects repeated; kernel %.4f ms, bound %.3g ms (%s), x '
+        'bound %.1f on %s' % (O, L, T, n, gb, n, ms, bound, by, ms / bound,
+                              card))
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -4127,6 +4527,11 @@ def main():
         print('chip_smoke: run from a checkout holding automerge_tpu_torch/',
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ['--first-call-child']:
+        # a fresh process of the first-call lane (first_call_lane)
+        import numpy as np
+        return first_call_child(torch, np) if sys.argv[2:] == ['threads'] \
+            else first_call_mesh_child(torch)
     try:
         kernels = run(torch)
     except Exception:
@@ -4169,6 +4574,9 @@ def run(torch):
     log('build: %.1f s (%s, %s) on %s' % (
         time.perf_counter() - t0, os.path.basename(core_path),
         ', '.join(os.path.basename(p) for p in kern_paths.values()), card))
+
+    # -- phase 0: the first-call lane, in fresh processes ----------------
+    first_call_lane(card)
 
     # -- capture the kernels' main-path inputs (largest call of each) ----
     captured = {'registers': [], 'dominance': [], 'members': [],
