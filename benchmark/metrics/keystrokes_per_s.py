@@ -1,0 +1,7 @@
+"""Keystroke changes applied per second over the whole window."""
+
+from benchmark import stats
+
+
+def read(run):
+    return stats.rate(run.work['keystrokes'], run.window_s)
