@@ -163,7 +163,9 @@ def _track_begin():
 
 def _free_batch(bh):
     global _live_batches
-    lib().amtpu_batch_free(bh)
+    L = lib()
+    with trace.span('batch.free'):
+        L.amtpu_batch_free(bh)
     with _live_lock:
         _live_batches -= 1
 
@@ -346,12 +348,13 @@ class NativeDocPool:
     def __init__(self, device=None):
         self.device = _pool_device(device)
         L = lib()
-        self._pool = L.amtpu_pool_new()
-        # the port is the kernel path on both devices: C++ never takes
-        # the full host path
-        L.amtpu_pool_set_hostfull(self._pool, 0)
-        self._resclk = PoolClockCache(self.device)
-        self._resident = ResidentCache(self.device)
+        with trace.span('pool.new'):
+            self._pool = L.amtpu_pool_new()
+            # the port is the kernel path on both devices: C++ never
+            # takes the full host path
+            L.amtpu_pool_set_hostfull(self._pool, 0)
+            self._resclk = PoolClockCache(self.device)
+            self._resident = ResidentCache(self.device)
         # doc key -> {'frontier', 'chunks'}: the settled snapshot a v2
         # checkpoint brought in, whose changes C++ no longer holds
         self._storage = {}
@@ -360,7 +363,8 @@ class NativeDocPool:
         # at interpreter shutdown this module's globals may be gone
         L = loaded() if loaded is not None else None
         if getattr(self, '_pool', None) and L is not None:
-            L.amtpu_pool_free(self._pool)
+            with trace.span('pool.free'):
+                L.amtpu_pool_free(self._pool)
             self._pool = None
 
     def doc_count(self):
@@ -513,7 +517,8 @@ class NativeDocPool:
                 bodies.append(memoryview(r)[off:])
             return map_header(total) + b''.join(bodies)
         finally:
-            L.amtpu_shard_free(sp)
+            with trace.span('batch.free'):
+                L.amtpu_shard_free(sp)
 
     def apply_local_change(self, doc_id, request):
         """Applies one local change request (requestType change / undo /
@@ -555,9 +560,10 @@ class NativeDocPool:
             _free_batch(bh)
 
     def _upload(self, view, dtype=None):
-        """Private host copy of a C++ column, then the device upload: the
-        C++ buffers never back a tensor (they are freed with the batch)."""
-        return register_ops.upload(np.array(view, dtype=dtype), self.device)
+        """Private host copy of a C++ column, then the device upload, in
+        one span: the C++ buffers never back a tensor (they are freed
+        with the batch)."""
+        return register_ops.upload(view, self.device, copy=True, dtype=dtype)
 
     def _phase_a(self, bh, fault_docs=None):
         """Reads the batch dims and dispatches the device work; the
@@ -596,8 +602,9 @@ class NativeDocPool:
             use_members = 0
         mem = hovf = None
         if use_members and Tp > 0:
-            mem = _view(L.amtpu_col_memidx(bh), (Tp, self.WINDOW))
-            hovf = np.array(_view(L.amtpu_col_hostovf(bh), (Tp,)))
+            with trace.span('host.columns'):
+                mem = _view(L.amtpu_col_memidx(bh), (Tp, self.WINDOW))
+                hovf = np.array(_view(L.amtpu_col_hostovf(bh), (Tp,)))
         # the smallest power of two that holds the widest group: a sliding
         # window of weff predecessors never fills (no overflow flag)
         if use_members:
@@ -673,35 +680,41 @@ class NativeDocPool:
         """The register columns on the device.  `ctab_dev` (the pool-
         resident clock table) replaces the batch-local table when the
         batch was encoded against pool-global clock rows (CTp == 0)."""
-        if ctab_dev is None:
-            ctab_dev = self._upload(_view(L.amtpu_col_clocktab(bh),
-                                          (CTp, Ap)))
-        cols = {k: self._upload(_view(getattr(L, 'amtpu_col_' + c)(bh),
-                                      (Tp,)))
-                for k, c in (('g', 'g'), ('t', 't'), ('a', 'a'), ('s', 's'),
-                             ('cidx', 'clockidx'), ('si', 'sort'))}
-        cols['d'] = self._upload(_view(L.amtpu_col_d(bh), (Tp,)), bool)
-        cols['ctab'] = ctab_dev
+        with trace.span('host.columns'):
+            views = {k: _view(getattr(L, 'amtpu_col_' + c)(bh), (Tp,))
+                     for k, c in (('g', 'g'), ('t', 't'), ('a', 'a'),
+                                  ('s', 's'), ('cidx', 'clockidx'),
+                                  ('si', 'sort'))}
+            d = _view(L.amtpu_col_d(bh), (Tp,))
+            if ctab_dev is None:
+                ctab = _view(L.amtpu_col_clocktab(bh), (CTp, Ap))
+        cols = {k: self._upload(v) for k, v in views.items()}
+        cols['d'] = self._upload(d, bool)
+        cols['ctab'] = self._upload(ctab) if ctab_dev is None else ctab_dev
         return cols
 
     def _arena_views(self, L, bh, Lp):
         """The list-arena columns on the device."""
-        cols = {k: self._upload(_view(getattr(L, 'amtpu_col_' + k)(bh),
-                                      (Lp,)))
-                for k in ('obj', 'par', 'ctr', 'act')}
-        cols['val'] = self._upload(_view(L.amtpu_col_val(bh), (Lp,)), bool)
-        cols['lsi'] = self._upload(_view(L.amtpu_col_linsort(bh), (Lp,)))
+        with trace.span('host.columns'):
+            views = {k: _view(getattr(L, 'amtpu_col_' + c)(bh), (Lp,))
+                     for k, c in (('obj', 'obj'), ('par', 'par'),
+                                  ('ctr', 'ctr'), ('act', 'act'),
+                                  ('lsi', 'linsort'))}
+            val = _view(L.amtpu_col_val(bh), (Lp,))
+        cols = {k: self._upload(v) for k, v in views.items()}
+        cols['val'] = self._upload(val, bool)
         return cols
 
     def _fetch_async(self, ctx, t):
         """Starts the device->host copy of `t` into pinned memory (phase
         b reads it after the context's event)."""
-        if self.device.type == 'cuda':
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            ctx['combo_host'] = host
-        else:
-            ctx['combo_host'] = t
+        with trace.span('device.launch'):
+            if self.device.type == 'cuda':
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                ctx['combo_host'] = host
+            else:
+                ctx['combo_host'] = t
 
     def _dispatch_fused(self, L, ctx, Tp, Ap, CTp, Lp, max_obj, n_blocks,
                         W, dLp, dTp):
@@ -715,10 +728,11 @@ class NativeDocPool:
         mem_dev = None if mem is None else self._upload(mem)
         if n_blocks == 0:
             # map-only batch: register resolution alone
-            reg_out = register_ops._resolve(
-                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
-                r['d'], r['si'], mem_dev, ctx['weff'],
-                want_visible_before=False)
+            with trace.span('device.launch'):
+                reg_out = register_ops._resolve(
+                    r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                    r['d'], r['si'], mem_dev, ctx['weff'],
+                    want_visible_before=False)
             combo = reg_out['packed']
         elif ctx['resident_ok'] and mem is None and self._dispatch_resident(
                 L, ctx, r, max_obj, dLp, dTp):
@@ -727,17 +741,21 @@ class NativeDocPool:
             e = self._arena_views(L, bh, Lp)
             n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
             shape_l, shape_t = (W, dLp), (W, dTp)
-            reg_out, rank, combo = register_ops.resolve_rank_dominate(
-                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
-                r['d'], r['si'], e['obj'], e['par'], e['ctr'], e['act'],
-                e['val'], e['lsi'], n_iters,
-                self._upload(_view(L.amtpu_dom_v0(bh, 0), shape_l)),
-                self._upload(_view(L.amtpu_fdom_ersrc(bh), shape_l)),
-                self._upload(_view(L.amtpu_dom_oe(bh, 0), shape_t)),
-                self._upload(_view(L.amtpu_fdom_oranksrc(bh), shape_t)),
-                self._upload(_view(L.amtpu_fdom_domsrc(bh), shape_t)),
-                self._upload(_view(L.amtpu_dom_ov(bh, 0), shape_t), bool),
-                window=ctx['weff'], mem_idx=mem_dev)
+            with trace.span('host.columns'):
+                # v0 and er_src fill lazily in C++ on first read
+                dom = [_view(L.amtpu_dom_v0(bh, 0), shape_l),
+                       _view(L.amtpu_fdom_ersrc(bh), shape_l),
+                       _view(L.amtpu_dom_oe(bh, 0), shape_t),
+                       _view(L.amtpu_fdom_oranksrc(bh), shape_t),
+                       _view(L.amtpu_fdom_domsrc(bh), shape_t)]
+                ov = _view(L.amtpu_dom_ov(bh, 0), shape_t)
+            dom = [self._upload(v) for v in dom] + [self._upload(ov, bool)]
+            with trace.span('device.launch'):
+                reg_out, rank, combo = register_ops.resolve_rank_dominate(
+                    r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                    r['d'], r['si'], e['obj'], e['par'], e['ctr'], e['act'],
+                    e['val'], e['lsi'], n_iters, *dom,
+                    window=ctx['weff'], mem_idx=mem_dev)
             ctx['rank'] = rank
         self._fetch_async(ctx, combo)
         ctx.update(combo=combo, reg_out=reg_out)
@@ -758,17 +776,22 @@ class NativeDocPool:
             return False
         bh = ctx['bh']
         meta = (ctypes.c_int64 * 4)()
-        L.amtpu_dom_obj_meta(bh, 0, meta)
-        doc_idx, obj_sid, base, n_now = [int(x) for x in meta]
-        if base != 0 or n_now <= 0 or n_now > dLp:
-            return False
-        doc_id = L.amtpu_batch_doc_id(bh, doc_idx)
+        with trace.span('host.columns'):
+            L.amtpu_dom_obj_meta(bh, 0, meta)
+            doc_idx, obj_sid, base, n_now = [int(x) for x in meta]
+            if base != 0 or n_now <= 0 or n_now > dLp:
+                return False
+            doc_id = L.amtpu_batch_doc_id(bh, doc_idx)
         entry = self._resident.get_entry(L, self._pool, doc_id, obj_sid,
                                          n_now, dLp)
         if entry is None:
             return False
-        oe = np.array(_view(L.amtpu_dom_oe(bh, 0), (1, dTp)))
-        ov = np.array(_view(L.amtpu_dom_ov(bh, 0), (1, dTp)), bool)
+        with trace.span('host.columns'):
+            oe_v = _view(L.amtpu_dom_oe(bh, 0), (1, dTp))
+            ds_v = _view(L.amtpu_fdom_domsrc(bh), (1, dTp))
+            ov_v = _view(L.amtpu_dom_ov(bh, 0), (1, dTp))
+        oe, dom_src = self._upload(oe_v), self._upload(ds_v)
+        ov = self._upload(ov_v, bool)
         n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
         # dirty until the post-emit visibility sync: a batch that fails
         # in between leaves the device visibility unsynced
@@ -780,15 +803,15 @@ class NativeDocPool:
             trace.count('resident.sharded_dispatch')
         else:
             resolve = register_ops.resolve_rank_dominate_resident
-        reg_out, rank, combo = resolve(
-            r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'], r['d'],
-            r['si'], entry.par, entry.ctr, entry.act, entry.ev, n_now,
-            register_ops.upload(oe, self.device),
-            self._upload(_view(L.amtpu_fdom_domsrc(bh), (1, dTp))),
-            register_ops.upload(ov, self.device), n_iters=n_iters,
-            window=ctx['weff'])
+        with trace.span('device.launch'):
+            reg_out, rank, combo = resolve(
+                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                r['d'], r['si'], entry.par, entry.ctr, entry.act, entry.ev,
+                n_now, oe, dom_src, ov, n_iters=n_iters, window=ctx['weff'])
         self._fetch_async(ctx, combo)
-        touched = np.unique(oe[0][ov[0] & (oe[0] >= 0)]).astype(np.int32)
+        # the batch (and so the views) lives until its emit
+        touched = np.unique(oe_v[0][(ov_v[0] != 0) & (oe_v[0] >= 0)]
+                            ).astype(np.int32)
         ctx.update(combo=combo, reg_out=reg_out, rank=rank,
                    resident=(entry, doc_id, obj_sid, n_now, touched))
         trace.count('resident.dispatch')
@@ -837,17 +860,19 @@ class NativeDocPool:
                     combo = ctx['combo_host'].numpy()
                     packed = np.ascontiguousarray(combo[:Tp])
                     dom_idx = np.ascontiguousarray(combo[Tp:])
-            # no row can be flagged: a sliding window holds the widest
-            # group, member mode flags nothing on the device, and host-
-            # flagged member overflow sends the batch to the layout fallback
-            if ((packed >> register_ops.PACKED_OVF_SHIFT) & 1).any():
-                raise AssertionError('a register row was flagged overflow '
-                                     'on the fused path')
-            conf_rows = np.nonzero(
-                ((packed >> register_ops.PACKED_ALIVE_SHIFT)
-                 & register_ops.PACKED_ALIVE_MASK) > 1)[0].astype(np.int32)
-            conf_vals = self._fetch_conflict_rows(ctx['reg_out'], conf_rows,
-                                                  Tp)
+                # no row can be flagged: a sliding window holds the widest
+                # group, member mode flags nothing on the device, and host-
+                # flagged member overflow sends the batch to the layout
+                # fallback
+                if ((packed >> register_ops.PACKED_OVF_SHIFT) & 1).any():
+                    raise AssertionError('a register row was flagged '
+                                         'overflow on the fused path')
+                conf_rows = np.nonzero(
+                    ((packed >> register_ops.PACKED_ALIVE_SHIFT)
+                     & register_ops.PACKED_ALIVE_MASK) > 1)[0].astype(
+                         np.int32)
+                conf_vals = self._fetch_conflict_rows(ctx['reg_out'],
+                                                      conf_rows, Tp)
             conf_offs = np.arange(conf_rows.size + 1,
                                   dtype=np.int32) * ctx['weff']
             with trace.span('host.mid'):
@@ -955,7 +980,7 @@ class NativeDocPool:
         if not rows.size:
             return np.zeros(0, np.int32)
         got = register_ops.gather_rows(
-            reg_out['conflicts'], torch.from_numpy(rows).to(self.device))
+            reg_out['conflicts'], register_ops.upload(rows, self.device))
         return _to_host(got).astype(np.int32)
 
     def _gather_conflicts(self, reg_out, alive, Tp):
@@ -1072,8 +1097,8 @@ class NativeDocPool:
             pending = ctx.pop('esc')[0]
         base = reg_out['packed']
         for _W, sub_rows, out in pending:
-            rows = torch.from_numpy(np.asarray(sub_rows, np.int64)).to(
-                self.device)
+            rows = register_ops.upload(np.asarray(sub_rows, np.int64),
+                                       self.device)
             register_ops.merge_packed_rows(base, rows, out['packed'])
         if pending:
             trace.metric('collect.device_merge_chunks', len(pending))
@@ -1129,7 +1154,6 @@ class NativeDocPool:
         (reg_out device dict | None, rank host int32 [Lp])."""
         mem = ctx['mem']
         reg_out = None
-        rank = np.zeros((0,), np.int32)
         if Tp > 0:
             r = self._register_views(L, bh, Tp, Ap, CTp, ctx.get('ctab_dev'))
             mem_dev = None if mem is None else self._upload(mem)
@@ -1137,22 +1161,23 @@ class NativeDocPool:
         if Lp > 0:
             e = self._arena_views(L, bh, Lp)
             n_iters = list_rank.ceil_log2(max(max_obj, 1)) + 1
-        if Tp > 0 and Lp > 0:
-            reg_out, rank_dev = register_ops.resolve_and_rank(
-                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
-                r['d'], r['si'], e['obj'], e['par'], e['ctr'], e['act'],
-                e['val'], e['lsi'], n_iters, window=ctx['weff'],
-                mem_idx=mem_dev)
-            rank = _to_host(rank_dev)
-        elif Tp > 0:
-            reg_out = register_ops._resolve(
-                r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
-                r['d'], r['si'], mem_dev, ctx['weff'],
-                want_visible_before=False)
-        elif Lp > 0:
-            rank = _to_host(linearize_auto(
-                e['obj'], e['par'], e['ctr'], e['act'], e['val'], n_iters,
-                sort_idx=e['lsi']))
+        with trace.span('device.launch'):
+            if Tp > 0 and Lp > 0:
+                reg_out, rank_dev = register_ops.resolve_and_rank(
+                    r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                    r['d'], r['si'], e['obj'], e['par'], e['ctr'], e['act'],
+                    e['val'], e['lsi'], n_iters, window=ctx['weff'],
+                    mem_idx=mem_dev)
+            elif Tp > 0:
+                reg_out = register_ops._resolve(
+                    r['g'], r['t'], r['a'], r['s'], r['ctab'], r['cidx'],
+                    r['d'], r['si'], mem_dev, ctx['weff'],
+                    want_visible_before=False)
+            elif Lp > 0:
+                rank_dev = linearize_auto(
+                    e['obj'], e['par'], e['ctr'], e['act'], e['val'],
+                    n_iters, sort_idx=e['lsi'])
+        rank = _to_host(rank_dev) if Lp > 0 else np.zeros((0,), np.int32)
         return reg_out, rank
 
     def _run_dominance(self, L, bh):
@@ -2042,7 +2067,8 @@ class ShardedNativePool:
                 errors = self._retry_failed_shards(subs, results, errors)
             _raise_shard_errors(errors)
         finally:
-            L.amtpu_shard_free(sp)
+            with trace.span('batch.free'):
+                L.amtpu_shard_free(sp)
         total = 0
         bodies = []
         for r in results:

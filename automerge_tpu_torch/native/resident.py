@@ -162,55 +162,59 @@ class ResidentCache:
         """The entry whose device columns hold the arena's rows [0,
         n_now), after as small an upload as the contract allows; None
         when the raw arena is shorter than n_now."""
-        n_raw, ctr, act, par, vis = self._read_raw(L, pool, doc_id, obj_sid)
-        if n_raw < n_now:
-            return None
-        key = (doc_id, obj_sid)
-        entry = self.entries.get(key)
-        need_full = (entry is None or entry.dirty or
-                     entry.capacity != capacity or entry.n > n_now)
-        lo = 0 if need_full else entry.n
-        if need_full or n_now > lo:
-            # the ranks may clear the entries (a middle-sorting actor):
-            # compute them first, then look at the entry again
-            ranks = self._rank_of_sids(L, pool, act[lo:n_now].tolist())
-            if self.entries.get(key) is not entry:
-                need_full, lo = True, 0
-                ranks = self._rank_of_sids(L, pool, act[:n_now].tolist())
-        dev = self.device
-        if need_full:
-            blocks = self.sp_blocks(capacity)
-            entry = ResidentArena(capacity, blocks)
+        with trace.span('resident.arena'):
+            n_raw, ctr, act, par, vis = self._read_raw(L, pool, doc_id,
+                                                       obj_sid)
+            if n_raw < n_now:
+                return None
+            key = (doc_id, obj_sid)
+            entry = self.entries.get(key)
+            need_full = (entry is None or entry.dirty or
+                         entry.capacity != capacity or entry.n > n_now)
+            lo = 0 if need_full else entry.n
+            if need_full or n_now > lo:
+                # the ranks may clear the entries (a middle-sorting
+                # actor): compute them first, then look at the entry again
+                ranks = self._rank_of_sids(L, pool,
+                                           act[lo:n_now].tolist())
+                if self.entries.get(key) is not entry:
+                    need_full, lo = True, 0
+                    ranks = self._rank_of_sids(L, pool,
+                                               act[:n_now].tolist())
+            dev = self.device
+            if need_full:
+                blocks = self.sp_blocks(capacity)
+                entry = ResidentArena(capacity, blocks)
 
-            def full(a, dtype, fill):
-                host = np.full(capacity, fill, dtype)
-                host[:n_now] = a[:n_now]
-                if blocks is None:
-                    return upload(host, dev)
-                Ll = capacity // len(blocks)
-                return [upload(np.array(host[s * Ll:(s + 1) * Ll]), d)
-                        for s, d in enumerate(blocks)]
-            entry.par = full(par, np.int32, -1)
-            entry.ctr = full(ctr, np.int32, 0)
-            entry.act = full(ranks, np.int32, 0)
-            entry.ev = full(vis, np.float32, 0.0)
-            entry.n = n_now
-            self.entries[key] = entry
-            trace.count('resident.full_upload_rows', n_now)
-        elif n_now > lo:
-            # appended rows are the contiguous range [lo, n_now)
-            for col, a, dtype in ((entry.par, par, np.int32),
-                                  (entry.ctr, ctr, np.int32),
-                                  (entry.act, ranks, np.int32),
-                                  (entry.ev, vis, np.float32)):
-                src = a if a is ranks else a[lo:n_now]
-                _write_rows(col, entry.blocks, lo, np.asarray(src, dtype),
-                            dev)
-            entry.n = n_now
-            trace.count('resident.delta_upload_rows', n_now - lo)
-        else:
-            trace.count('resident.no_upload')
-        return entry
+                def full(a, dtype, fill):
+                    host = np.full(capacity, fill, dtype)
+                    host[:n_now] = a[:n_now]
+                    if blocks is None:
+                        return upload(host, dev)
+                    Ll = capacity // len(blocks)
+                    return [upload(np.array(host[s * Ll:(s + 1) * Ll]), d)
+                            for s, d in enumerate(blocks)]
+                entry.par = full(par, np.int32, -1)
+                entry.ctr = full(ctr, np.int32, 0)
+                entry.act = full(ranks, np.int32, 0)
+                entry.ev = full(vis, np.float32, 0.0)
+                entry.n = n_now
+                self.entries[key] = entry
+                trace.count('resident.full_upload_rows', n_now)
+            elif n_now > lo:
+                # appended rows are the contiguous range [lo, n_now)
+                for col, a, dtype in ((entry.par, par, np.int32),
+                                      (entry.ctr, ctr, np.int32),
+                                      (entry.act, ranks, np.int32),
+                                      (entry.ev, vis, np.float32)):
+                    src = a if a is ranks else a[lo:n_now]
+                    _write_rows(col, entry.blocks, lo,
+                                np.asarray(src, dtype), dev)
+                entry.n = n_now
+                trace.count('resident.delta_upload_rows', n_now - lo)
+            else:
+                trace.count('resident.no_upload')
+            return entry
 
     def invalidate_doc(self, doc_id):
         """Marks every entry of `doc_id` (bytes) dirty: its arena changed
@@ -224,22 +228,24 @@ class ResidentCache:
                         touched):
         """Visibility of the batch's touched elements (int32 element
         indexes) from the C++ ground truth, after emit."""
-        n_raw, _ctr, _act, _par, vis = self._read_raw(L, pool, doc_id,
-                                                      obj_sid)
-        if n_raw < n_now:          # rolled back after dispatch
-            entry.dirty = True
-            return
-        if touched.size and entry.blocks is None:
-            entry.ev.index_copy_(
-                0, upload(touched.astype(np.int64), self.device),
-                upload(vis[touched].astype(np.float32), self.device))
-        elif touched.size:
-            Ll = entry.ev[0].shape[0]
-            for s, (part, d) in enumerate(zip(entry.ev, entry.blocks)):
-                mine = touched[(touched >= s * Ll) & (touched < (s + 1) * Ll)]
-                if mine.size:
-                    part.index_copy_(
-                        0, upload((mine - s * Ll).astype(np.int64), d),
-                        upload(vis[mine].astype(np.float32), d))
-        entry.n = n_now
-        entry.dirty = False
+        with trace.span('resident.arena'):
+            n_raw, _ctr, _act, _par, vis = self._read_raw(L, pool, doc_id,
+                                                          obj_sid)
+            if n_raw < n_now:          # rolled back after dispatch
+                entry.dirty = True
+                return
+            if touched.size and entry.blocks is None:
+                entry.ev.index_copy_(
+                    0, upload(touched.astype(np.int64), self.device),
+                    upload(vis[touched].astype(np.float32), self.device))
+            elif touched.size:
+                Ll = entry.ev[0].shape[0]
+                for s, (part, d) in enumerate(zip(entry.ev, entry.blocks)):
+                    mine = touched[(touched >= s * Ll)
+                                   & (touched < (s + 1) * Ll)]
+                    if mine.size:
+                        part.index_copy_(
+                            0, upload((mine - s * Ll).astype(np.int64), d),
+                            upload(vis[mine].astype(np.float32), d))
+            entry.n = n_now
+            entry.dirty = False

@@ -468,13 +468,20 @@ def _dispatch_cost(n_rows, W):
     return _tier_of(n_rows) * (W + 1) * (W + 1) * 4
 
 
-def upload(host, device):
+def upload(host, device, copy=False, dtype=None):
     """Copies a private host array (a numpy array no one else holds) to
-    `device`.  Every private copy the pool makes of C++ state crosses to
-    the device here; to CUDA it is a synchronous pageable copy, so the
-    array may be overwritten as soon as this returns (`chip_smoke.py`'s
-    hostile-staging lane does so)."""
-    return torch.from_numpy(host).to(device)
+    `device`; with `copy`, `host` is a view of C++ memory, of which a
+    private copy (as `dtype`) is taken first.  Every private copy the
+    pool makes of C++ state crosses to the device here, in one span
+    `device.upload` (the copy included), its bytes counted in the phase
+    counter `upload.bytes`; to CUDA it is a synchronous pageable copy,
+    so the array may be overwritten as soon as this returns
+    (`chip_smoke.py`'s hostile-staging lane does so)."""
+    with trace.span('device.upload'):
+        if copy:
+            host = np.array(host, dtype=dtype)
+        trace.count('upload.bytes', host.nbytes)
+        return torch.from_numpy(host).to(device)
 
 
 def _dispatch_members_tier(time, actor, seq, mem, is_del, clock_table,

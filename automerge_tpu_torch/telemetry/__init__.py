@@ -39,7 +39,8 @@ from .metrics import (DEFAULT_BUCKETS, MetricRegistry,  # noqa: F401
                       format_value)
 from .spans import (NULL_SPAN, current_span,  # noqa: F401
                     current_trace_context, disable, enable, enabled,
-                    new_id, new_root_context, new_trace_id, phase_add,
+                    new_id, new_root_context, new_trace_id,
+                    open_range, close_range, phase_add,
                     phase_count, phase_report, phase_reset,
                     phase_snapshot, set_trace_file, span,
                     span_with_context, trace_file)

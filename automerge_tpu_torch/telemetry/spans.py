@@ -20,7 +20,9 @@ ONE attribute check -- no allocation, no clock read (the overhead gate
 accumulates into the phase-occupancy table (the numbers `report()`
 prints -- occupancy seconds can exceed wall time when shard threads
 overlap) and appends one JSONL record if an export file is configured
-(`TRACE_FILE` or `set_trace_file`).
+(`TRACE_FILE` or `set_trace_file`); and each span, of either kind
+(`span()` here, `trace.span`), is also a `torch.profiler` range
+(`open_range`), so a profiler's trace puts it on the card's timeline.
 
 Propagation is contextvars-based: nesting follows the call stack within
 a thread/async context.  Worker threads (ShardedNativePool) start fresh
@@ -41,7 +43,9 @@ TRACE_FILE_MAX_MB = 256
 
 _current = contextvars.ContextVar('amtpu_current_span', default=None)
 
-_lock = threading.Lock()
+#: re-entrant for the same reason as `trace._lock`: a span closed by a
+#: finalizer (`pool.free`) may interrupt this lock's holder
+_lock = threading.RLock()
 _seconds = {}
 _counts = {}
 
@@ -109,9 +113,30 @@ class _NullSpan(object):
 NULL_SPAN = _NullSpan()
 
 
+def open_range(name):
+    """While span tracing is on, enters and returns a
+    `torch.profiler.record_function(name)` range: a `user_annotation` of
+    the profiler's Chrome trace, on the timeline of the card's kernels
+    and copies, so an idle stretch of the card is named by the span
+    that held the host.  None while tracing is off (no torch call).
+    Both span kinds open one: `trace.span` and `Span`."""
+    if not _state.on:
+        return None
+    import torch
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def close_range(rf, exc_type=None, exc=None, tb=None):
+    """Leaves a range `open_range` entered (None: nothing to leave)."""
+    if rf is not None:
+        rf.__exit__(exc_type, exc, tb)
+
+
 class Span(object):
     __slots__ = ('name', 'trace_id', 'span_id', 'parent_id', 'attrs',
-                 'start', '_t0', '_token')
+                 'start', '_t0', '_token', '_range')
 
     def __init__(self, name, trace_id, parent_id, attrs):
         self.name = name
@@ -125,12 +150,14 @@ class Span(object):
 
     def __enter__(self):
         self._token = _current.set(self)
+        self._range = open_range(self.name)
         self.start = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         dur = time.perf_counter() - self._t0
+        close_range(self._range, exc_type, exc, tb)
         _current.reset(self._token)
         if exc_type is not None:
             self.attrs['error'] = exc_type.__name__

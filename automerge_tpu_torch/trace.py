@@ -14,18 +14,21 @@ the register rows and the resident route stay out of the flat table.
 `<name>` in an always-on span table, and `add(name, seconds)` a duration
 measured elsewhere (the C++ stage times `cxx.*`); while span tracing is
 enabled (`telemetry.enable()`) both also feed telemetry's phase
-occupancy table.  The flat map and the span table are read with
-`snapshot()` and cleared with `reset()`; the phase table with
+occupancy table, and each `span` is also a `torch.profiler` range of its
+name (`telemetry.open_range`).  The flat map and the span table are read
+with `snapshot()` and cleared with `reset()`; the phase table with
 `telemetry.phase_snapshot()` and `telemetry.phase_reset()`.
 """
 
-import contextlib
 import threading
 import time
 
 from . import telemetry as _t
 
-_lock = threading.Lock()
+#: re-entrant: a pool the garbage collector frees times its free (span
+#: `pool.free`) at whatever bytecode the collection interrupted, which may
+#: be inside this lock on the same thread
+_lock = threading.RLock()
 _spans = {}
 
 
@@ -37,13 +40,23 @@ def count(name, n=1):
     _t.phase_count(name, n)
 
 
-@contextlib.contextmanager
-def span(name):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        add(name, time.perf_counter() - t0)
+class span:
+    """`with span(name):` adds the block's wall time to `name`, whether
+    it returns or raises; while tracing is on, the block is also a
+    profiler range.  Off, it costs two clock reads and the add."""
+    __slots__ = ('name', '_t0', '_range')
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self._range = _t.open_range(self.name)
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, exc, tb):
+        add(self.name, time.perf_counter() - self._t0)
+        _t.close_range(self._range, exc_type, exc, tb)
+        return False
 
 
 def add(name, seconds):
